@@ -10,9 +10,10 @@ caller — ``timesteps_sample``, ``qmc_stepper.rs:23-40``).
 
 Usage: python examples/binder_crossing.py [sweeps] [replicas]
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 

@@ -1,6 +1,6 @@
 """BASELINE configs 1-2: classical 2D Ising across the phase transition.
 
-256x256 checkerboard Metropolis (Pallas kernel on TPU) swept through
+256x256 checkerboard Metropolis (the CUDA kernel on a GPU) swept through
 temperatures around the Onsager critical point T_c = 2/ln(1+sqrt(2)) ~ 2.269,
 printing energy and |magnetization| per site; then Swendsen-Wang cluster
 sweeps at T_c on a 64x64 graph, where single-site dynamics suffer critical

@@ -1,11 +1,11 @@
-"""isingmontecarlo_tpu: a TPU-native (JAX/XLA/Pallas) Ising Monte Carlo framework.
+"""isingmontecarlo_tpu: a batched (JAX/XLA + CUDA) Ising Monte Carlo framework.
 
 A from-scratch rebuild of the capability surface of the `qmc` Rust crate
-(Renmusxd/IsingMonteCarlo, surveyed in SURVEY.md) designed TPU-first:
+(Renmusxd/IsingMonteCarlo, surveyed in SURVEY.md) designed for accelerators:
 
 - Thousands of independent replicas are batched on a leading axis ``R`` so that
-  the branchy per-worldline logic of Monte Carlo updates is amortized over wide
-  vector lanes (VPU) instead of pointer-chasing linked lists
+  the branchy per-worldline logic of Monte Carlo updates is amortized over
+  wide vector work instead of pointer-chasing linked lists
   (reference: ``src/sse/fast_ops.rs``).
 - Counter-based RNG (`jax.random`, threefry) replaces the sequential `rand`
   streams so every lattice site / imaginary-time slot / replica can draw
@@ -25,7 +25,8 @@ Layout (mirrors the reference layer map, SURVEY.md section 1):
 - :mod:`isingmontecarlo_tpu.parallel` — parallel tempering over device meshes.
 - :mod:`isingmontecarlo_tpu.analysis` — FFT autocorrelations
   (reference ``src/sse/autocorrelations.rs``).
-- :mod:`isingmontecarlo_tpu.ops` — Pallas TPU kernels for the hot paths.
+- :mod:`isingmontecarlo_tpu.ops` — CUDA kernels for two hot paths, and the
+  single switch between them and plain XLA.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Classical Ising Monte Carlo (reference: ``src/classical/graph.rs``).
 
-TPU-first design: spins live as ``bool[R, N]`` (R replicas batched on the
+Batched design: spins live as ``bool[R, N]`` (R replicas batched on the
 leading axis), updates are color-parallel Metropolis sweeps, matching-parallel
 edge flips, batched zero-energy worm walks, and Swendsen-Wang cluster flips on
 lattices. Energy/magnetization estimators are fused reductions.

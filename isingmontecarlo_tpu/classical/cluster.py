@@ -4,7 +4,7 @@ The reference has no classical cluster move (its classical moves are
 single-spin, edge, and worm flips, ``src/classical/graph.rs``); this module
 adds the standard Swendsen-Wang / Wolff family because it is the right tool
 for the 256^2 temperature-sweep workload (BASELINE.md config 2) and it
-vectorizes perfectly on TPU:
+vectorizes perfectly:
 
 1. Activate each *satisfied* bond (``J sigma_i sigma_j = -|J|``) with
    probability ``1 - exp(-2 beta |J|)``.

@@ -1,7 +1,7 @@
 """User-facing classical Ising MC API mirroring the reference ``GraphState``
 (``src/classical/graph.rs:8-453``), batched over replicas.
 
-The reference object is a single Markov chain; the TPU build runs ``R``
+The reference object is a single Markov chain; this build runs ``R``
 independent chains at once (the throughput comes from the batch). All
 reference entry points are mirrored:
 
@@ -15,7 +15,7 @@ reference entry points are mirrored:
   color-parallel edge sweep touches every edge each pass, so importance
   sampling of *which* edge to try is subsumed (documented no-op).
 
-Additional TPU-only entry points: ``swendsen_wang_step`` / ``wolff_step``
+Additional entry points (not in the reference): ``swendsen_wang_step`` / ``wolff_step``
 cluster moves and a uniform-lattice fast path (see
 :mod:`isingmontecarlo_tpu.classical.metropolis`).
 """
@@ -155,13 +155,13 @@ class GraphState:
         return (delta_e <= 0.0) | (u < jnp.exp(-beta * delta_e))
 
     def swendsen_wang_step(self, beta: float) -> None:
-        """TPU-only extra move (not in the reference): Swendsen-Wang sweep."""
+        """Extra move (not in the reference): Swendsen-Wang sweep."""
         self.spins = _cluster.swendsen_wang_sweep(
             self.spins, self._split(), beta, self.tables
         )
 
     def wolff_step(self, beta: float) -> None:
-        """TPU-only extra move (not in the reference): Wolff cluster flip."""
+        """Extra move (not in the reference): Wolff cluster flip."""
         self.spins = _cluster.wolff_sweep(
             self.spins, self._split(), beta, self.tables
         )

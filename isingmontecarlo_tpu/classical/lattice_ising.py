@@ -1,12 +1,13 @@
 """Uniform periodic square-lattice fast path — the user-facing wrapper over
-the Pallas checkerboard kernel (the 256^2 benchmark workload, BASELINE.md
+the CUDA checkerboard kernel (the 256^2 benchmark workload, BASELINE.md
 config 2).
 
 The general :class:`~isingmontecarlo_tpu.classical.graph_state.GraphState`
 handles arbitrary weighted graphs through compiled adjacency tables; this
 class exploits lattice uniformity: spins live as ``bool[R, L, L]``, neighbor
-sums are rolls, and on TPU (L a multiple of 128) whole multi-sweep runs stay
-VMEM-resident via :func:`isingmontecarlo_tpu.ops.checkerboard_multi_sweep`.
+sums are rolls, and on a GPU (L a multiple of 4, up to 480) whole multi-sweep
+runs keep each replica's field in shared memory via
+:func:`isingmontecarlo_tpu.ops.checkerboard.checkerboard_multi_sweep`.
 Energy conventions match ``src/classical/graph.rs:430-447``.
 """
 
@@ -49,8 +50,8 @@ class LatticeIsing:
             self.spins = spins
 
     def run_sweeps(self, nsweeps: int, beta: float) -> None:
-        """``nsweeps`` full checkerboard Metropolis sweeps (Pallas kernel on
-        TPU for 128-aligned L, fused XLA scan otherwise)."""
+        """``nsweeps`` full checkerboard Metropolis sweeps (the CUDA kernel on
+        a GPU where it takes L, the fused XLA scan otherwise)."""
         self._sweep_counter += 1
         self.spins = _metro.lattice_multi_sweep(
             self.spins,

@@ -11,7 +11,7 @@ Semantics mirror the reference (``src/classical/graph.rs``):
 - Paired edge flip: flip both endpoints of an edge, ``dE`` omits the shared
   edge's coupling (``graph.rs:122-153``).
 
-TPU-native reformulation: instead of one random site per move, all sites of a
+Batched reformulation: instead of one random site per move, all sites of a
 graph-color class are updated simultaneously (non-adjacent => independent
 acceptances; the sweep over color classes is a valid sequential composition of
 parallel Metropolis kernels). Edge flips use an edge coloring (matching classes)
@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from isingmontecarlo_tpu import lattice
+from isingmontecarlo_tpu.ops import backend, checkerboard
 
 
 class GraphTables(NamedTuple):
@@ -74,7 +75,9 @@ def local_field(spins: jax.Array, tables: GraphTables) -> jax.Array:
     neigh = jnp.where(tables.neigh >= 0, tables.neigh, 0)  # [N, D]
     sn = s[:, neigh]  # [R, N, D]
     w = jnp.where(tables.neigh >= 0, tables.nj, 0.0)  # [N, D]
-    return jnp.einsum("rnd,nd->rn", sn, w)
+    # A multiply and sum in f32, not a dot: a GPU may run an f32 dot in
+    # TF32 (about three digits), which would round real couplings.
+    return jnp.sum(sn * w[None], axis=-1)
 
 
 def energy(spins: jax.Array, tables: GraphTables) -> jax.Array:
@@ -266,27 +269,35 @@ def lattice_multi_sweep(
     h,
     nsweeps: int,
 ) -> jax.Array:
-    """``nsweeps`` checkerboard sweeps with automatic backend dispatch: the
-    Pallas VMEM-resident kernel on TPU for 128-aligned lattices (one HBM load
-    + store total), otherwise the fused XLA scan."""
+    """``nsweeps`` checkerboard sweeps: the CUDA shared-memory kernel on a
+    GPU for lattices it takes (``ops.checkerboard.kernel_supports``; one
+    device-memory load and store in all), otherwise the fused XLA scan. The
+    two draw different random streams (Philox vs threefry) and sample the
+    same chain statistically."""
     L = spins.shape[-1]
-    if jax.devices()[0].platform == "tpu" and L % 128 == 0:
-        from isingmontecarlo_tpu.ops import checkerboard_multi_sweep
-
-        return checkerboard_multi_sweep(
-            spins, jnp.int32(seed), jnp.float32(beta), jnp.float32(j),
-            jnp.float32(h), nsweeps,
+    if backend.gpu_kernels() and checkerboard.kernel_supports(L):
+        if isinstance(seed, int):
+            seed = np.uint32(seed % (1 << 32))
+        return checkerboard.checkerboard_multi_sweep(
+            spins, seed, checkerboard.thresholds(beta, j, h), nsweeps,
         )
+
+    return _lattice_scan(
+        spins, jax.random.key(seed), jnp.float32(beta), jnp.float32(j),
+        jnp.float32(h), nsweeps,
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("nsweeps",))
+def _lattice_scan(spins, key, beta, j, h, nsweeps: int):
+    """``nsweeps`` XLA checkerboard sweeps (threefry uniforms) in one scan."""
 
     def body(carry, _):
         sp, key = carry
         key, sub = jax.random.split(key)
-        sp = checkerboard_sweep(sp, sub, jnp.float32(beta), jnp.float32(j), jnp.float32(h))
-        return (sp, key), None
+        return (checkerboard_sweep(sp, sub, beta, j, h), key), None
 
-    (sp, _), _ = jax.lax.scan(
-        body, (spins, jax.random.key(seed)), None, length=nsweeps
-    )
+    (sp, _), _ = jax.lax.scan(body, (spins, key), None, length=nsweeps)
     return sp
 
 

@@ -34,7 +34,7 @@ Deviations from the reference:
   physical convention (identical behavior for ``h = 0``, which is what the
   reference's own worm tests exercise).
 
-TPU-native design: one worm per replica, advanced in lockstep by a single
+Batched design: one worm per replica, advanced in lockstep by a single
 ``lax.while_loop`` whose body does O(max_degree) vector work per replica;
 finished lanes idle until all replicas close or fail.
 """

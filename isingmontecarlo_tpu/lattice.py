@@ -1,7 +1,7 @@
 """Lattice / graph utilities.
 
 The reference represents couplings as ``Vec<((usize, usize), f64)>`` edge lists
-(``src/classical/graph.rs:53``, ``src/sse/qmc_ising.rs:80-95``). The TPU build
+(``src/classical/graph.rs:53``, ``src/sse/qmc_ising.rs:80-95``). This build
 keeps the same user-facing edge-list convention but compiles it into dense,
 fixed-shape tables:
 
@@ -76,7 +76,7 @@ def greedy_coloring(nvars: int, edges: Sequence[tuple[Edge, float]]) -> np.ndarr
     """Greedy vertex coloring; returns ``i32[N]`` color ids.
 
     Sites sharing a color are non-adjacent, so they can be Metropolis-updated
-    in parallel (the TPU replacement for the reference's one-random-site
+    in parallel (the batched replacement for the reference's one-random-site
     updates, ``graph.rs:91-119``).
     """
     from isingmontecarlo_tpu import native

@@ -1,6 +1,7 @@
 """Native (C++) host-side components, loaded via ctypes.
 
-The device compute path is JAX/XLA/Pallas; these cover host-side hot paths —
+The device compute path is JAX/XLA (plus the CUDA kernels of ops/); these
+cover host-side hot paths —
 today the graph compiler (adjacency construction, greedy vertex coloring,
 strong edge coloring), which pure Python does with large constant factors
 (minutes for 256^2 lattices).

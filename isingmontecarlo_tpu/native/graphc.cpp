@@ -1,7 +1,7 @@
 // Native graph compiler — the host-side hot path of lattice/graph
 // construction (adjacency tables, greedy vertex coloring, strong (distance-2)
 // edge coloring). The reference builds its adjacency in Rust
-// (src/classical/graph.rs:69-80); here the device code is JAX/Pallas and this
+// (src/classical/graph.rs:69-80); here the device code is JAX/XLA and this
 // C++ covers the host-side graph compilation that pure Python does in
 // O(N*deg^2) with heavy constant factors (minutes for 256^2 lattices).
 //

@@ -1,24 +1,25 @@
-"""Pallas TPU kernel: multi-sweep checkerboard Metropolis on a periodic
-uniform square lattice.
+"""Multi-sweep checkerboard Metropolis on a periodic uniform square lattice,
+as a CUDA kernel, and its plain-jnp twin.
 
-This is the hot path behind the 256^2 classical benchmark (BASELINE.md). The
-XLA version (:func:`isingmontecarlo_tpu.classical.metropolis.checkerboard_sweep`)
-round-trips the spin field (and threefry uniforms) through HBM every sweep;
-this kernel holds one replica's spin field in VMEM for ``nsweeps`` full
-sweeps, draws randomness from the on-chip PRNG (``pltpu.prng_random_bits``),
-and touches HBM exactly twice (load + store). Reference semantics: energy
-``E = sum_e J sigma_i sigma_j - h sum sigma``
-(``src/classical/graph.rs:430-447``), single-spin flip
-``dE = -2 J sigma_v sum_nb sigma + 2 h sigma_v``, Metropolis acceptance
-``dE <= 0 || u < exp(-beta dE)`` (``graph.rs:339-347``), applied
-checkerboard-parallel.
+The XLA version (:func:`isingmontecarlo_tpu.classical.metropolis.checkerboard_sweep`)
+round-trips the spin field through device memory every half sweep and draws
+threefry uniforms for the whole field, half of them for the masked colour.
+The kernel (``kernels.cu``, ``CheckerboardKernel``) holds one replica's field
+in shared memory for ``nsweeps`` sweeps (``L * L`` bytes, so ``L <= 480``)
+and touches device memory once on load and once on store. Reference
+semantics: energy ``E = sum_e J s_i s_j - h sum s``
+(``src/classical/graph.rs:430-447``), single-spin flip ``dE = -2 J s nsum +
+2 h s`` and acceptance ``dE <= 0 || u < exp(-beta dE)`` (``graph.rs:339-347``),
+applied colour by colour.
 
-Layout: the two checkerboard colors are stored *compacted* as ``(L, L/2)``
-planes (color of site ``(y, x)`` is ``(x + y) % 2``; plane E holds
-``s[y, 2k + (y & 1)]``, plane O the rest). Every VPU lane is then a real
-attempt and the PRNG draws exactly one word per attempt — the full-field
-formulation wastes half of both on the masked color. Neighbor sums become
-rolls of the *other* plane with a row-parity select for the left/right pair.
+Randomness is Philox-4x32-10 (Salmon et al., SC'11) with key ``(seed, 0)``
+and counter ``(group, sweep, colour, replica)``: colour ``c`` holds the sites
+with ``(x + y) % 2 == c``; site ``(y, x)`` has half-lattice index
+``i = y * L/2 + x // 2``, group ``i // 4`` and word ``i % 4``; ``u =
+(word >> 8) * 2^-24``. Acceptance compares ``u`` with a ten-entry threshold
+table indexed by ``spin * 5 + up_neighbours``, computed once per call by
+:func:`thresholds`, so no transcendental runs in the kernel and the kernel
+and :func:`checkerboard_twin` agree bit for bit.
 """
 
 from __future__ import annotations
@@ -27,134 +28,113 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
+
+from isingmontecarlo_tpu.ops import _cuda
+
+_PHILOX_M0 = np.uint32(0xD2511F53)
+_PHILOX_M1 = np.uint32(0xCD9E8D57)
+_PHILOX_W0 = np.uint32(0x9E3779B9)
+_PHILOX_W1 = np.uint32(0xBB67AE85)
+
+# Shared memory a block may hold (Hopper), minus the threshold table.
+_SMEM_BYTES = 232448 - 64
 
 
-def split_colors(spins: jax.Array) -> jax.Array:
-    """``bool/int8 [R, L, L]`` -> ``int8 [R, 2, L, L/2]`` compact planes."""
-    R, L, _ = spins.shape
-    pairs = spins.astype(jnp.int8).reshape(R, L, L // 2, 2)
-    ye = (jnp.arange(L, dtype=jnp.int32) % 2 == 0)[None, :, None]
-    e = jnp.where(ye, pairs[..., 0], pairs[..., 1])
-    o = jnp.where(ye, pairs[..., 1], pairs[..., 0])
-    return jnp.stack([e, o], axis=1)
+def kernel_supports(L: int) -> bool:
+    """Lattices the kernel takes: four-aligned (groups of four sites share
+    a half row) and small enough for one block's shared memory."""
+    return L % 4 == 0 and L * L <= _SMEM_BYTES
 
 
-def merge_colors(eo: jax.Array) -> jax.Array:
-    """Inverse of :func:`split_colors`: ``[R, 2, L, L/2]`` -> ``[R, L, L]``."""
-    R, _, L, H = eo.shape
-    e, o = eo[:, 0], eo[:, 1]
-    ye = (jnp.arange(L, dtype=jnp.int32) % 2 == 0)[None, :, None]
-    p0 = jnp.where(ye, e, o)
-    p1 = jnp.where(ye, o, e)
-    return jnp.stack([p0, p1], axis=-1).reshape(R, L, 2 * H)
+def _mulhilo(a, b):
+    """``(hi, lo)`` 32-bit halves of the 64-bit product of uint32 arrays,
+    from 16-bit limbs (no 64-bit types needed)."""
+    lo = a * b
+    al, ah = a & 0xFFFF, a >> 16
+    bl, bh = b & 0xFFFF, b >> 16
+    t = al * bl
+    m1 = ah * bl
+    m2 = al * bh
+    mid = (t >> 16) + (m1 & 0xFFFF) + (m2 & 0xFFFF)
+    hi = ah * bh + (m1 >> 16) + (m2 >> 16) + (mid >> 16)
+    return hi, lo
 
 
-def _kernel(seed_ref, beta_ref, j_ref, h_ref, eo_ref, out_ref, *, nsweeps, L):
-    # Distinct PRNG stream per replica (grid program).
-    r = pl.program_id(0)
-    pltpu.prng_seed(seed_ref[0] + r)
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox-4x32-10 on uint32 arrays (broadcasting); returns four words."""
+    c = [jnp.asarray(x, jnp.uint32) for x in (c0, c1, c2, c3)]
+    k0 = jnp.asarray(k0, jnp.uint32)
+    k1 = jnp.asarray(k1, jnp.uint32)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(jnp.uint32(_PHILOX_M0), c[0])
+        hi1, lo1 = _mulhilo(jnp.uint32(_PHILOX_M1), c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        k0 = k0 + _PHILOX_W0
+        k1 = k1 + _PHILOX_W1
+    return c
 
-    beta = beta_ref[0]
-    j = j_ref[0]
-    h = h_ref[0]
+
+def thresholds(beta, j, h) -> jax.Array:
+    """``f32[10]``: ``exp(-beta * max(dE, 0))`` at ``spin * 5 + up``, with
+    ``dE`` as in ``checkerboard_sweep`` (``-2 j nsum s + 2 h s``)."""
+    up = jnp.arange(5, dtype=jnp.float32)
+    nsum = 2.0 * up - 4.0
+    s = jnp.array([-1.0, 1.0], jnp.float32)[:, None]
+    de = -2.0 * jnp.float32(j) * nsum * s + 2.0 * jnp.float32(h) * s
+    return jnp.exp(-jnp.float32(beta) * jnp.maximum(de, 0.0)).reshape(10)
+
+
+def _half_uniforms(seed, R, L, sweep, colour):
+    """``f32[R, L, L/2]`` uniforms of one colour's half lattice."""
     H = L // 2
-
-    row_even = (
-        jax.lax.broadcasted_iota(jnp.int32, (L, H), 0) % 2
-    ) == 0
-
-    e0 = eo_ref[0, 0].astype(jnp.float32) * 2.0 - 1.0  # +-1
-    o0 = eo_ref[0, 1].astype(jnp.float32) * 2.0 - 1.0
-
-    def attempt(s, nsum):
-        # graph.rs energy convention: E = sum_e J s_i s_j - h sum s, so
-        # dE = s * (2 h - 2 J nsum).
-        de = s * (2.0 * h - 2.0 * j * nsum)
-        bits = pltpu.bitcast(pltpu.prng_random_bits((L, H)), jnp.uint32)
-        # uint32 -> f32 casts are unsupported; drop the top byte first so the
-        # value fits an int32, then cast.
-        u24 = pltpu.bitcast(bits >> 8, jnp.int32)
-        u = u24.astype(jnp.float32) * (1.0 / (1 << 24))
-        acc = u < jnp.exp(-beta * jnp.maximum(de, 0.0))
-        return jnp.where(acc, -s, s)
-
-    def body(i, carry):
-        e, o = carry
-        # E-plane neighbors: up/down = O rolled along rows; left/right pair =
-        # O and O shifted by one lane, direction depending on row parity.
-        nsum_e = (
-            pltpu.roll(o, 1, axis=0)
-            + pltpu.roll(o, L - 1, axis=0)  # roll requires shift >= 0
-            + o
-            + jnp.where(
-                row_even,
-                pltpu.roll(o, 1, axis=1),
-                pltpu.roll(o, H - 1, axis=1),
-            )
-        )
-        e = attempt(e, nsum_e)
-        nsum_o = (
-            pltpu.roll(e, 1, axis=0)
-            + pltpu.roll(e, L - 1, axis=0)
-            + e
-            + jnp.where(
-                row_even,
-                pltpu.roll(e, H - 1, axis=1),
-                pltpu.roll(e, 1, axis=1),
-            )
-        )
-        o = attempt(o, nsum_o)
-        return e, o
-
-    e, o = jax.lax.fori_loop(0, nsweeps, body, (e0, o0))
-    out_ref[0, 0] = (e > 0.0).astype(jnp.int8)
-    out_ref[0, 1] = (o > 0.0).astype(jnp.int8)
+    G = L * H // 4
+    g = jnp.arange(G, dtype=jnp.uint32)[None, :]
+    r = jnp.arange(R, dtype=jnp.uint32)[:, None]
+    w = philox4x32(g, sweep, colour, r, seed, 0)
+    words = jnp.stack(w, axis=-1).reshape(R, L, H)
+    return (words >> 8).astype(jnp.float32) * jnp.float32(1.0 / (1 << 24))
 
 
-@functools.partial(jax.jit, static_argnames=("nsweeps", "interpret"))
-def checkerboard_multi_sweep(
-    spins: jax.Array,  # int8/bool [R, L, L]
-    seed: jax.Array,  # i32[]
-    beta: jax.Array,
-    j: jax.Array,
-    h: jax.Array,
-    nsweeps: int,
-    interpret: bool = False,
-) -> jax.Array:
-    """``nsweeps`` full checkerboard Metropolis sweeps entirely in VMEM.
-
-    One grid program per replica; each holds its ``L x L`` field on-chip in
-    the compact two-plane color layout. ``L`` should be a multiple of 256 on
-    real TPUs (the plane lane width ``L/2`` must tile by 128); use
-    ``interpret=True`` for small-lattice testing on CPU.
-    """
+@functools.partial(jax.jit, static_argnames=("nsweeps",))
+def checkerboard_twin(spins, seed, thr, nsweeps: int):
+    """Plain-jnp twin of the kernel: ``bool[R, L, L]`` after ``nsweeps``
+    sweeps, bit-identical to :func:`checkerboard_multi_sweep` on the GPU."""
     R, L, _ = spins.shape
-    H = L // 2
-    eo = split_colors(spins)
-    scalars = [
-        jnp.asarray([seed], jnp.int32),
-        jnp.asarray([beta], jnp.float32),
-        jnp.asarray([j], jnp.float32),
-        jnp.asarray([h], jnp.float32),
-    ]
-    out = pl.pallas_call(
-        functools.partial(_kernel, nsweeps=nsweeps, L=L),
-        grid=(R,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, 2, L, H), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 2, L, H), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((R, 2, L, H), jnp.int8),
-        interpret=interpret,
-    )(*scalars, eo)
-    return merge_colors(out).astype(bool)
+    seed = jnp.asarray(seed).astype(jnp.uint32)
+    yy = jax.lax.broadcasted_iota(jnp.int32, (L, L), 0)
+    xx = jax.lax.broadcasted_iota(jnp.int32, (L, L), 1)
+    colour_of = (xx + yy) % 2
+
+    def sweep(s, sp):
+        for c in range(2):
+            si = sp.astype(jnp.int32)
+            up = (
+                jnp.roll(si, 1, axis=-1) + jnp.roll(si, -1, axis=-1)
+                + jnp.roll(si, 1, axis=-2) + jnp.roll(si, -1, axis=-2)
+            )
+            u = jnp.repeat(
+                _half_uniforms(seed, R, L, s.astype(jnp.uint32), c), 2, axis=-1
+            )
+            acc = u < thr[si * 5 + up]
+            sp = jnp.where((colour_of == c)[None] & acc, ~sp, sp)
+        return sp
+
+    return jax.lax.fori_loop(0, nsweeps, sweep, spins)
+
+
+@functools.partial(jax.jit, static_argnames=("nsweeps",))
+def checkerboard_multi_sweep(spins, seed, thr, nsweeps: int):
+    """``nsweeps`` checkerboard Metropolis sweeps of ``bool[R, L, L]`` in the
+    CUDA kernel (GPU only; ``kernel_supports(L)`` must hold)."""
+    _cuda.register()
+    out = jax.ffi.ffi_call(
+        "ising_checkerboard",
+        jax.ShapeDtypeStruct(spins.shape, jnp.uint8),
+        vmap_method="sequential",
+    )(
+        spins.astype(jnp.uint8), thr.astype(jnp.float32),
+        jnp.asarray(seed).astype(jnp.uint32).reshape(1),
+        nsweeps=np.int32(nsweeps),
+    )
+    return out.astype(bool)

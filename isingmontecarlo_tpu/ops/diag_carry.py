@@ -1,164 +1,84 @@
-"""Pallas TPU kernel for the diagonal sweep's carry scan.
+"""The SSE diagonal update's op-count carry as a CUDA kernel.
 
 The precomputed-weights diagonal update (``sse/diagonal.py``,
 ``_diagonal_update_fast``) reduces the Sandvik sweep (``diagonal.rs:141-191``)
 to one sequential dependence: the op count ``n``. Each slot's insert/remove
-decision is a pure function of ``n`` and per-slot precomputed planes. As an
-XLA ``lax.scan`` over M slots with a tiny ``[R]`` body this is issue-bound
-(thousands of micro-steps); here the whole scan runs inside one kernel —
-planes stream HBM -> VMEM in M-blocks, the ``n`` carry lives in a VMEM
-scratch register across grid steps, and each slot costs a handful of VPU ops
-on an ``[S, 128]`` tile (replicas laid out over sublanes x lanes).
+decision is a function of ``n`` and of per-slot values computed up front. As
+an XLA ``lax.scan`` over M slots every step is a separate launch of a tiny
+``[R]``-wide body. The kernel (``kernels.cu``, ``DiagCarryKernel``) gives each
+replica one thread that walks all M slots with ``n`` in a register.
 
-The arithmetic is the same f32 expressions as :func:`sse.diagonal._ins_rem`
-evaluated at the same integer counts, so decisions are bit-identical to the
-sequential scan (asserted by tests/test_diagonal_fast.py).
+The slot data travels packed: ``kind u8[M, R]`` (0 none, 1 insert candidate,
+2 removable diagonal op) and, for Metropolis, one threshold ``f32[M, R]``
+(``num_ins`` at insert candidates, ``num_rem`` at diagonal ops); heat-bath
+folds its n-independent insert test into ``kind`` and passes ``beta * total``
+per replica. :func:`carry_reference` is the same computation as a
+``lax.scan`` over the packed inputs — the kernel's plain twin.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-# Rows per grid step: VMEM holds ~5 planes of [C, R] f32; keep blocks a few
-# MB. C must divide the padded M.
-_BLOCK = 512
+from isingmontecarlo_tpu.ops import _cuda
 
 
-def _kernel_metropolis(M):
-    def kernel(n0_ref, u0_ref, idp_ref, dgp_ref, ni_ref, nr_ref, out_ref,
-               n_scr):
-        i = pl.program_id(0)
+def pack(idp, dgp, p1, p2, *, heatbath: bool):
+    """``(kind u8[M, R], thr f32[M, R] | None)`` from the unpacked planes.
 
-        @pl.when(i == 0)
-        def _():
-            n_scr[:] = n0_ref[:]
-
-        C = u0_ref.shape[0]
-
-        def body(j, n):
-            u0 = u0_ref[j]            # [S, L]
-            mmn = (M - n).astype(jnp.float32)
-            ins = (idp_ref[j] != 0) & (u0 * mmn < ni_ref[j])
-            rem = (dgp_ref[j] != 0) & (u0 * nr_ref[j] < mmn + 1.0)
-            # Mosaic has no vector<i8> arithmetic — keep codes in i32.
-            insi = ins.astype(jnp.int32)
-            remi = rem.astype(jnp.int32)
-            out_ref[j] = insi + 2 * remi
-            return n + insi - remi
-
-        n_scr[:] = jax.lax.fori_loop(0, C, body, n_scr[:])
-
-    return kernel
+    ``p1``/``p2`` are ``num_ins``/``num_rem`` (Metropolis) or
+    ``insw``/unused (heat-bath). Insert candidates and diagonal ops are
+    disjoint (identity vs occupied slots), so one code per slot suffices."""
+    ins_ok = idp & p1 if heatbath else idp
+    kind = jnp.where(ins_ok, 1, jnp.where(dgp, 2, 0)).astype(jnp.uint8)
+    thr = None if heatbath else jnp.where(idp, p1, p2).astype(jnp.float32)
+    return kind, thr
 
 
-def _kernel_heatbath(M):
-    def kernel(n0_ref, u0_ref, idp_ref, dgp_ref, insw_ref, bwt_ref, out_ref,
-               n_scr):
-        i = pl.program_id(0)
+def carry_reference(n0, u0, kind, thr, bwt, *, heatbath: bool):
+    """The kernel's plain twin: ``code u8[M, R]`` by a ``lax.scan`` with the
+    arithmetic of ``sse.diagonal._ins_rem`` on the packed inputs."""
+    M = u0.shape[0]
 
-        @pl.when(i == 0)
-        def _():
-            n_scr[:] = n0_ref[:]
+    def step(n, xs):
+        u, k = xs[:2]
+        mmn = (M - n).astype(jnp.float32)
+        if heatbath:
+            ins = (k == 1) & (u * (mmn + bwt) < bwt)
+            rem = (k == 2) & (u * (mmn + 1.0 + bwt) < (mmn + 1.0))
+        else:
+            t = xs[2]
+            ins = (k == 1) & (u * mmn < t)
+            rem = (k == 2) & (u * t < (mmn + 1.0))
+        code = jnp.where(ins, 1, jnp.where(rem, 2, 0)).astype(jnp.uint8)
+        return n + ins.astype(jnp.int32) - rem.astype(jnp.int32), code
 
-        C = u0_ref.shape[0]
-        bwt = bwt_ref[:]  # [S, L]
-
-        def body(j, n):
-            u0 = u0_ref[j]
-            mmn = (M - n).astype(jnp.float32)
-            ins = (
-                (idp_ref[j] != 0)
-                & (u0 * (mmn + bwt) < bwt)
-                & (insw_ref[j] != 0)
-            )
-            rem = (dgp_ref[j] != 0) & (
-                u0 * (mmn + 1.0 + bwt) < (mmn + 1.0)
-            )
-            insi = ins.astype(jnp.int32)
-            remi = rem.astype(jnp.int32)
-            out_ref[j] = insi + 2 * remi
-            return n + insi - remi
-
-        n_scr[:] = jax.lax.fori_loop(0, C, body, n_scr[:])
-
-    return kernel
+    xs = (u0, kind) if heatbath else (u0, kind, thr)
+    return jax.lax.scan(step, n0.astype(jnp.int32), xs)[1]
 
 
-@functools.partial(
-    jax.jit, static_argnames=("M", "heatbath", "interpret")
-)
-def carry_decisions(
-    n0: jax.Array,   # i32[R]
-    u0: jax.Array,   # f32[M, R]
-    idp: jax.Array,  # bool[M, R] — identity slot (insert candidate)
-    dgp: jax.Array,  # bool[M, R] — removable diagonal op
-    p1: jax.Array,   # f32[M, R] num_ins (metropolis) | bool[M, R] insw (hb)
-    p2: jax.Array,   # f32[M, R] num_rem (metropolis) | unused (hb)
-    bwt: jax.Array,  # f32[R] beta*total (heatbath only; zeros otherwise)
-    *,
-    M: int,
-    heatbath: bool,
-    interpret: bool = False,
-):
-    """Insert/remove decisions for all M slots. Returns
-    ``(insert bool[M, R], remove bool[M, R])``, bit-identical to scanning
-    :func:`sse.diagonal._ins_rem` sequentially."""
-    R = u0.shape[1]
-    # Lay replicas over (sublanes, lanes): [M, R] -> [M, S, L].
-    if R % 128 == 0:
-        S, L = R // 128, 128
-    else:
-        S, L = 1, R
-    Mp = -(-M // _BLOCK) * _BLOCK
-
-    def prep(a, dtype):
-        a = a.astype(dtype)
-        if Mp != M:
-            a = jnp.pad(a, ((0, Mp - M), (0, 0)))  # pads are inert (idp=0)
-        return a.reshape(Mp, S, L)
-
-    u0 = prep(u0, jnp.float32)
-    idp = prep(idp, jnp.int32)
-    dgp = prep(dgp, jnp.int32)
-    if heatbath:
-        p1 = prep(p1, jnp.int32)
-        p2 = None
-    else:
-        p1 = prep(p1, jnp.float32)
-        p2 = prep(p2, jnp.float32)
-    n0 = n0.astype(jnp.int32).reshape(S, L)
-    bwt = jnp.broadcast_to(
-        jnp.asarray(bwt, jnp.float32).reshape(-1), (R,)
-    ).reshape(S, L)
-
-    row_spec = pl.BlockSpec(
-        (_BLOCK, S, L), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
+def carry_kernel(n0, u0, kind, thr, bwt, *, heatbath: bool):
+    """``code u8[M, R]`` from the CUDA kernel (GPU only; see
+    :func:`isingmontecarlo_tpu.ops.backend.gpu_kernels`)."""
+    _cuda.register()
+    name = (
+        "ising_diag_carry_heatbath" if heatbath
+        else "ising_diag_carry_metropolis"
     )
-    full_spec = pl.BlockSpec(
-        (S, L), lambda i: (0, 0), memory_space=pltpu.VMEM
+    last = (
+        jnp.broadcast_to(jnp.asarray(bwt, jnp.float32), n0.shape) if heatbath
+        else thr
     )
-    if heatbath:
-        kernel = _kernel_heatbath(M)
-        ins = [full_spec, row_spec, row_spec, row_spec, row_spec, full_spec]
-        args = (n0, u0, idp, dgp, p1, bwt)
-    else:
-        kernel = _kernel_metropolis(M)
-        ins = [full_spec, row_spec, row_spec, row_spec, row_spec, row_spec]
-        args = (n0, u0, idp, dgp, p1, p2)
+    return jax.ffi.ffi_call(
+        name, jax.ShapeDtypeStruct(u0.shape, jnp.uint8),
+        vmap_method="sequential",
+    )(n0.astype(jnp.int32), u0.astype(jnp.float32), kind, last)
 
-    code = pl.pallas_call(
-        kernel,
-        grid=(Mp // _BLOCK,),
-        in_specs=ins,
-        out_specs=row_spec,
-        out_shape=jax.ShapeDtypeStruct((Mp, S, L), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((S, L), jnp.int32)],
-        interpret=interpret,
-    )(*args)
-    code = code.reshape(Mp, R)[:M]
+
+def carry_decisions(n0, u0, idp, dgp, p1, p2, bwt, *, heatbath: bool):
+    """Insert/remove decisions ``(bool[M, R], bool[M, R])`` for all slots from
+    the kernel, bit-identical to the sequential ``lax.scan`` carry."""
+    kind, thr = pack(idp, dgp, p1, p2, heatbath=heatbath)
+    code = carry_kernel(n0, u0, kind, thr, bwt, heatbath=heatbath)
     return code == 1, code == 2

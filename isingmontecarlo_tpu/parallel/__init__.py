@@ -1,5 +1,5 @@
 """Ensemble / parallel layer: parallel tempering over the replica axis,
-sharded across TPU meshes (reference ``src/sse/parallel_tempering/``)."""
+sharded across device meshes (reference ``src/sse/parallel_tempering/``)."""
 
 from isingmontecarlo_tpu.parallel.tempering import (
     TemperingContainer,

@@ -8,7 +8,7 @@ optionally running replicas on rayon threads (``:315-478``). For Ising graphs
 the Hamiltonian-ratio term is computed in O(bonds) from per-bond op counters
 (``tempering_traits.rs:117-155``).
 
-TPU-native redesign (SURVEY.md sections 2 and 5): replicas are a batch axis
+Batched redesign (SURVEY.md sections 2 and 5): replicas are a batch axis
 ``R`` carrying per-replica inverse temperatures ``beta[R]`` and, optionally,
 per-replica **per-bond Hamiltonian multipliers** ``scales[R, NB]`` (built
 from per-class ``(J-scale, transverse-scale, longitudinal-scale)`` inputs —
@@ -634,7 +634,7 @@ def tempering_sweep_chunk_sharded(
 
     Requires ``R % mesh.devices.size == 0``. The reference's analog is the
     rayon thread pool (``tempering_container.rs:315-478``); this is its
-    ICI-mesh equivalent per SURVEY.md §2's parallelism inventory."""
+    device-mesh equivalent per SURVEY.md §2's parallelism inventory."""
     R = betas.shape[0]
     names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
     ndev = int(np.prod([mesh.shape[n] for n in names]))
@@ -1048,7 +1048,7 @@ class TemperingContainer:
 
     def shard_over(self, mesh, axis_name: str = "replicas") -> None:
         """Shard the replica axis over a :class:`jax.sharding.Mesh` so sweeps
-        run data-parallel across chips via XLA collectives — the TPU-native
+        run data-parallel across devices via XLA collectives — the batched
         replacement for the reference's rayon thread pool
         (``tempering_container.rs:315-478``). The swap step's cross-device
         traffic is only the tiny per-replica ``(n, beta)`` vectors."""

@@ -1,6 +1,6 @@
 """Stochastic Series Expansion QMC (reference: ``src/sse/``).
 
-TPU-native reformulation of the reference's SSE stack:
+Batched reformulation of the reference's SSE stack:
 
 - The operator string is a fixed-capacity struct-of-arrays tensor
   (:mod:`~isingmontecarlo_tpu.sse.opstring`) instead of linked-list nodes

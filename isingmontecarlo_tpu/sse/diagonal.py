@@ -17,25 +17,26 @@ max_w(b)``; pick the bond from the max-weight distribution (cumulative table +
 searchsorted) and accept ``u * max_w(b) < W``; remove any diagonal op with
 probability ``(M - n + 1) / (M - n + 1 + bW_tot)``.
 
-TPU-native form: one ``lax.scan`` over the M axis whose carry is
-``(state bool[R, N], n i32[R])``; every step does O(R) vector work, so wall
-clock is M sequential steps regardless of replica count. All randomness is
-pre-generated as counter-based uniforms ``[M, R]``.
+Batched form: every replica's sweep runs at once. The per-slot proposal
+weights are computed for all slots up front (:func:`_parallel_weights`), so
+the only sequential piece left is the op-count carry over the M slots — the
+CUDA kernel of ``ops/diag_carry.py`` on a GPU, a ``lax.scan`` elsewhere. All
+randomness is pre-generated as counter-based uniforms ``[M, R]``.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
+from isingmontecarlo_tpu.ops import backend
+from isingmontecarlo_tpu.ops.diag_carry import carry_decisions
 from isingmontecarlo_tpu.sse.model import BondModel
 from isingmontecarlo_tpu.sse.opstring import OpString, op_count
 from isingmontecarlo_tpu.sse.tables import bond_fetch as _bond_fetch
-from isingmontecarlo_tpu.sse.tables import bond_fetch_multi
 from isingmontecarlo_tpu.sse.tables import class_select as _class_select
 from isingmontecarlo_tpu.sse.tables import fetch_xor as _fetch_xor
 from isingmontecarlo_tpu.sse.tables import row_select
@@ -80,11 +81,9 @@ def _xor_si(si, bond_xor, b, rows):
     return si ^ bond_xor[rr, b]
 
 
-# Class-table weight lookups replace per-lane ``diag_w`` gathers when the
-# model has at most this many (class, substate) cells: the select chain is
-# pure VPU lane work on [M, R] grids, while the row-gather form
-# ``diag_w[b] -> [M, R, 2^K]`` puts 2^K on the lane axis (padded to 128 —
-# measured 18.4 ms per lookup at [M~7000, R=512] vs ~0.1 ms this way).
+# Class-table weight lookups replace ``diag_w`` gathers when the model has
+# at most this many (class, substate) cells: the select chain is elementwise
+# work on [M, R] grids.
 _CLASS_MAX_CELLS = 64
 
 def _use_class_tables(model) -> bool:
@@ -94,15 +93,14 @@ def _use_class_tables(model) -> bool:
     )
 
 
-def _weight_lookup(model, b, si, bond_xor, rows, on_tpu):
+def _weight_lookup(model, b, si, bond_xor, rows):
     """``diag_w[b, si ^ xor_mask]`` on an ``[M, R]`` (bond, substate) grid:
     class-table select chain when the model factorizes small, else the
     row-gather + where-chain of :func:`row_select`."""
     if _use_class_tables(model):
         if bond_xor is not None:
-            si = si ^ _fetch_xor(bond_xor, b, on_tpu)
-        cls_b = _bond_fetch(model.cls, b, on_tpu)
-        return _class_select(model.wtab, cls_b, si)
+            si = si ^ _fetch_xor(bond_xor, b)
+        return _class_select(model.wtab, _bond_fetch(model.cls, b), si)
     return row_select(model.diag_w, b, _xor_si(si, bond_xor, b, rows))
 
 
@@ -121,58 +119,17 @@ def _substate_idx(bits):
     return jnp.sum(bits.astype(jnp.int32) * w, axis=0)
 
 
-# Element-count gates for the precomputed-weights fast path, in units of
-# M*R*N. The CPU branch materializes a bool [M, R, N] flip-parity tensor
-# (M*R*N bytes); the TPU branch is bit-packed — its largest tensor is the
-# [M, R, W, 4] bf16 byte-plane stack, W = ceil(N/16), i.e. ~M*R*N/2 bytes —
-# so it tolerates a 4x larger element count (peak ~1 GB per temporary at
-# the cap, on 16 GB HBM). Large replica counts at 32^2 (R >= 104) need the
-# higher cap to stay on the fast path.
-_PAR_MAX_ELEMS = 1 << 29
-_PAR_MAX_ELEMS_PACKED = 1 << 31
-
-# Test hook: force the bit-packed MXU precompute branch on (True) or off
-# (False) regardless of backend; None = auto (TPU only).
-_FORCE_PACKED = None
-
-# The fast path's carry scan over M slots is its only sequential piece; above
-# this many slots the block-speculative evaluation (see _carry_scan_spec) is
-# used. Test hook: set to small/huge to force the branch on/off.
-_SPEC_MIN_M = 2048
-
-# The carry scan can run as a Pallas kernel (ops/diag_carry.py): the n carry
-# lives in VMEM scratch and each slot costs a few VPU ops, with no
-# speculative-window fallback. Test hook: True forces the kernel (in
-# interpreter mode off-TPU), False forces it off; None = auto — ON on TPU:
-# measured 2026-08-21 at 32^2 with the lane-major precompute the kernel
-# runs the full diagonal update in 9.5 ms vs 14.7 spec / 12.8 sequential
-# at R=512, and 1.60 vs 2.64 spec / 1.92 sequential at R=64 (the round-2
-# "kernel loses at R=64" verdict was an artifact of the old 28 ms
-# precompute masking the carry stage). ISING_DIAG_KERNEL=0/1 overrides.
-_FORCE_CARRY_KERNEL = None
-_KERNEL_ENV = os.environ.get("ISING_DIAG_KERNEL", "")
-_CARRY_KERNEL_MIN_R = 0
-
-# The flip-parity precompute can likewise run as a Pallas kernel
-# (ops/parity_kernel.py): the XOR word carry lives in VMEM and word
-# construction/fetch are compare-select sums, replacing the packed path's
-# one-hot einsums + multi-level associative_scan. ON by default on TPU:
-# measured 2026-08-19 at 32^2 (M=5152, R=64) it takes diagonal_update from
-# 33.6 ms to 1.3 ms (full sweep 73 -> 43 ms alone). ISING_PARITY_KERNEL=0
-# disables.
-_FORCE_PARITY_KERNEL = None
-_PARITY_KERNEL_DEFAULT = os.environ.get("ISING_PARITY_KERNEL", "") != "0"
-# Candidate window half-width for the speculative carry: the TRUE op count
-# at each block boundary must stay within +-_SPEC_WINDOW/2 of the frozen-n
-# estimate (see _carry_scan_spec pass 0), else the exact sequential fallback
-# runs. The estimate tracks the sweep-long drift of n, so the window only
-# covers the estimate's error — much tighter than the drift itself.
-_SPEC_WINDOW = 128
-_SPEC_BLOCK = 128
+# Cap, in 32-bit words, on one M-chunk of the packed flip-parity tensor
+# [Mc, R, W] (W = ceil(N / 32)). The XOR associative_scan holds about four
+# tensors of a chunk's size at once, so 2^28 words (1 GiB) bounds the
+# precompute at a few GiB: a small share of the 60 GB a JAX process takes of
+# an 80 GB H100 by default, leaving the rest to the op string and to the
+# cluster update's label problem. At 32^2 R=512 (M ~ 7,000, W = 32) the whole
+# string is one chunk of 1.2e8 words.
+_PAR_MAX_WORDS = 1 << 28
 
 
-def _parallel_weights(ops, state, u1, model, hb, heatbath, max_elems=None,
-                      bond_xor=None):
+def _parallel_weights(ops, state, u1, model, hb, heatbath, bond_xor=None):
     """Everything the diagonal sweep needs per slot, computed upfront.
 
     Key fact: a diagonal sweep only inserts/removes *diagonal* ops, which do
@@ -181,249 +138,81 @@ def _parallel_weights(ops, state, u1, model, hb, heatbath, max_elems=None,
     unconditionally from pre-generated uniforms, exactly as the sequential
     scan does) and their matrix elements can be evaluated for all slots in
     parallel: spin of var v just below slot p = state[v] XOR (parity of
-    off-diagonal flips on v's worldline before p), an exclusive segmented
-    XOR-scan along imaginary time. Returns ``(b_new, bits_new, w_new)``.
+    off-diagonal flips on v's worldline before p), an exclusive XOR-scan
+    along imaginary time. Returns ``(b_new, bits_new [K, M, R], w_new)``.
 
-    The variable-wide parity tensors are the memory peak; when
-    ``M * R * N`` exceeds the element cap they are computed in M-chunks
-    threaded by an XOR parity carry (exact — XOR is associative), so the
-    fast path works at any replica count with bounded memory.
+    Parities are packed 32 variables to a word: variable ``v`` is bit
+    ``v % 32`` of word ``v // 32``. Each slot's toggles reach their words by
+    a native scatter-add (one op per slot with distinct legs, so the added
+    bits are distinct and the sum is their XOR), the XOR scan runs over
+    ``[M, R, W]`` words, and a native gather reads each proposed leg's word.
+    Above ``_PAR_MAX_WORDS`` the scan runs in M-chunks threaded by the XOR
+    carry (exact — XOR is associative).
     """
     M, R = ops.bond.shape
     K = ops.max_legs
     N = model.nvars
     NB = model.nbonds
+    W = -(-N // 32)
     rows = jnp.arange(R, dtype=jnp.int32)
 
     # --- proposal bonds for every slot (same draw as the sequential path) --
     if heatbath:
-        if hb.cum_max_w.ndim == 2:  # [R, NB]
-            tgt = u1 * hb.total[None, :]  # [M, R]
-            b_new = _searchsorted_left(hb.cum_max_w, tgt)
-        else:
-            # Two-level compare-count + boundary-row gather: bit-identical
-            # to searchsorted but avoids its ~log2(NB) rounds of per-lane
-            # gathers, which scalarize on TPU and made heat-bath sweeps ~3x
-            # their Metropolis twins (tables.searchsorted_left).
-            b_new = _searchsorted_left(hb.cum_max_w, u1 * hb.total)
+        b_new = _searchsorted_left(hb.cum_max_w, u1 * hb.total)
         b_new = jnp.minimum(b_new, NB - 1)
     else:
         b_new = jnp.minimum((u1 * NB).astype(jnp.int32), NB - 1)
 
-    # --- flip-parity tensor [M, R, N] ---------------------------------------
-    # Per-lane TPU scatters/gathers on this tensor are scalarized (~75M
-    # elements/s) and dominated the precompute; on TPU both the toggle
-    # scatter and the parity/state lookups ride the MXU as one-hot einsums
-    # instead (exact: one op per slot means each (slot, var) receives at
-    # most one toggle, and each lookup matches exactly one 0/1 entry,
-    # accumulated in f32).
-    if _FORCE_PACKED is not None:  # test hook
-        on_tpu = _FORCE_PACKED
-    else:
-        on_tpu = jax.default_backend() == "tpu"
-
-    use_parity_kernel = (
-        _FORCE_PARITY_KERNEL
-        if _FORCE_PARITY_KERNEL is not None
-        else _PARITY_KERNEL_DEFAULT and jax.default_backend() == "tpu"
-    )
-    if use_parity_kernel:
-        # Everything stays [K, M, R] (legs major, replicas on lanes): per-leg
-        # bond-var fetches ride take0, toggles come straight off the SoA op
-        # string, and invalid legs carry the >= 16W sentinel the kernel
-        # drops — no [M, R, K] tensor (64x lane padding) is ever formed.
-        from isingmontecarlo_tpu.ops.parity_kernel import parity_bits
-
-        kern_tpu = jax.default_backend() == "tpu"
-        W = -(-N // 16)
-        sent = 16 * W
-        b_safe = jnp.maximum(ops.bond, 0)
-        bv_nn = jnp.where(model.bond_vars >= 0, model.bond_vars, sent)
-        # One packed take0 per index grid: the K leg tables (and the weight
-        # class, when the model factorizes) ride a single gather — per-call
-        # cost at these shapes is dispatch-bound (~1.6 ms), so packing is
-        # ~K-fold cheaper than K calls (bond_fetch_multi).
-        cls_ok = _use_class_tables(model)
-        leg_tabs = [bv_nn[:, k] for k in range(K)]
-        leg_vmaxs = [sent] * K
-        if cls_ok:
-            leg_tabs.append(model.cls)
-            leg_vmaxs.append(int(model.wtab.shape[0]) - 1)
-        got_cur = bond_fetch_multi(leg_tabs, b_safe, leg_vmaxs, kern_tpu)
-        got_new = bond_fetch_multi(leg_tabs, b_new, leg_vmaxs, kern_tpu)
-        v_idx = jnp.stack(got_cur[:K])  # [K, M, R]
-        vq = jnp.stack(got_new[:K])
-        # Identity slots fetch bond 0's vars, but their toggles are
-        # all-False (identity ops have inputs == outputs == False), so no
-        # bond >= 0 mask is needed; pad legs carry the sentinel.
-        tog = ops.inputs != ops.outputs  # [K, M, R]
-        # Exact integer word packing of the p=0 state (no bf16 round trip).
-        st_pad = jnp.pad(
-            state.astype(jnp.int32), ((0, 0), (0, sent - N))
-        ).reshape(R, W, 16)
-        state_w = jnp.sum(
-            st_pad << jnp.arange(16, dtype=jnp.int32)[None, None, :], axis=-1
-        )
-        pb, sb = parity_bits(
-            jnp.zeros((R, W), jnp.int32), state_w, v_idx, tog, vq,
-            interpret=not kern_tpu,
-        )
-        bits_new = sb ^ pb  # [K, M, R]; sentinel legs are 0 by construction
-        si_new = jnp.sum(
-            bits_new.astype(jnp.int32)
-            * (1 << jnp.arange(K, dtype=jnp.int32))[:, None, None],
-            axis=0,
-        )  # [M, R]
-        if cls_ok:
-            # w_cur rides the same fetched classes — the caller's separate
-            # lookup (and the heat-bath max) reuse them via ``extras``.
-            si_cur = jnp.sum(
-                ops.inputs.astype(jnp.int32)
-                * (1 << jnp.arange(K, dtype=jnp.int32))[:, None, None],
-                axis=0,
-            )
-            if bond_xor is not None:
-                si_new = si_new ^ _fetch_xor(bond_xor, b_new, kern_tpu)
-                si_cur = si_cur ^ _fetch_xor(bond_xor, b_safe, kern_tpu)
-            w_new = _class_select(model.wtab, got_new[K], si_new)
-            extras = {
-                "w_cur": _class_select(model.wtab, got_cur[K], si_cur),
-                "cls_new": got_new[K],
-            }
-        else:
-            w_new = _weight_lookup(
-                model, b_new, si_new, bond_xor, rows, kern_tpu
-            )
-            extras = {}
-        return b_new, bits_new, w_new, extras  # bits [K, M, R]
-
+    # --- packed flip-parity words ------------------------------------------
     vars_all = model.bond_vars[jnp.maximum(ops.bond, 0)]  # [M, R, K]
     leg_ok = (vars_all >= 0) & (ops.bond >= 0)[..., None]
-    tog = jnp.moveaxis(ops.inputs != ops.outputs, 0, -1) & leg_ok  # [M, R, K]
-    r_idx = jnp.broadcast_to(rows[None, :, None], (M, R, K))
-    v_idx = jnp.where(leg_ok, vars_all, N)
+    tog = jnp.moveaxis(ops.inputs != ops.outputs, 0, -1) & leg_ok
+    v = jnp.where(leg_ok, vars_all, 0)
+    one = jnp.uint32(1)
+    bit = jnp.where(tog, one << (v % 32).astype(jnp.uint32), jnp.uint32(0))
     vq = model.bond_vars[b_new]  # [M, R, K]
     q_ok = vq >= 0
-    vq_s = jnp.where(q_ok, vq, 0)
-    cap = max_elems or (
-        _PAR_MAX_ELEMS_PACKED if on_tpu else _PAR_MAX_ELEMS
-    )
-    n_chunks = max(1, -(-(M * R * N) // cap))
+    vq = jnp.where(q_ok, vq, 0)
+    st = jnp.pad(state.astype(jnp.uint32), ((0, 0), (0, 32 * W - N)))
+    state_w = jnp.sum(
+        st.reshape(R, W, 32) << jnp.arange(32, dtype=jnp.uint32),
+        axis=-1, dtype=jnp.uint32,
+    )  # [R, W]
+    rr = rows[None, :, None]
+    words = []
+    par0 = jnp.zeros((R, W), jnp.uint32)
+    n_chunks = max(1, -(-(M * R * W) // _PAR_MAX_WORDS))
     Mc = -(-M // n_chunks)
-
-    if on_tpu:
-        # Bit-packed MXU form: variables pack 16-per-int32-word, so the
-        # XOR scan runs over [Mc, R, W] ints (W = ceil(N/16), 4x less HBM
-        # traffic than the bool form) and all one-hot tensors are W-wide,
-        # not N-wide. Exactness: toggle construction multiplies 0/1 by a
-        # power of two (exact in bf16) and sums at most K distinct-bit
-        # terms in f32; the word fetch matches exactly one word, with word
-        # values split into byte planes (< 256, exact in bf16) and
-        # recombined in f32.
-        W = -(-N // 16)
-        iota_w = jnp.arange(W, dtype=jnp.int32)
-        state_w = jnp.einsum(
-            "rn,nw->rw",
-            state.astype(jnp.bfloat16),
-            jnp.where(
-                (jnp.arange(N, dtype=jnp.int32) // 16)[:, None] == iota_w,
-                (1 << (jnp.arange(N) % 16)).astype(jnp.bfloat16)[:, None],
-                0.0,
-            ).astype(jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)  # [R, W]
-
-        def chunk_packed(c0, c1, par0):
-            mc = c1 - c0
-            bitw = (1 << (v_idx[c0:c1] % 16)).astype(jnp.bfloat16)
-            oh_vw = jnp.where(
-                (v_idx[c0:c1] // 16)[..., None] == iota_w,
-                bitw[..., None], 0.0,
-            ).astype(jnp.bfloat16)  # [Mc, R, K, W]
-            flips_w = jnp.einsum(
-                "mrk,mrkw->mrw",
-                tog[c0:c1].astype(jnp.bfloat16),
-                oh_vw,
-                preferred_element_type=jnp.float32,
-            ).astype(jnp.int32)
-            inc = jax.lax.associative_scan(
-                jax.lax.bitwise_xor, flips_w, axis=0
-            )
-            par_w = par0[None] ^ jnp.concatenate(
-                [jnp.zeros((1, R, W), jnp.int32), inc[:-1]], axis=0
-            )
-            planes = jnp.stack(
-                [
-                    par_w >> 8,
-                    par_w & 0xFF,
-                    jnp.broadcast_to((state_w >> 8)[None], (mc, R, W)),
-                    jnp.broadcast_to((state_w & 0xFF)[None], (mc, R, W)),
-                ],
-                axis=-1,
-            ).astype(jnp.bfloat16)  # [Mc, R, W, 4] byte planes, < 256 each
-            vq_c = vq_s[c0:c1]
-            oh_qw = ((vq_c // 16)[..., None] == iota_w).astype(jnp.bfloat16)
-            words = jnp.einsum(
-                "mrwd,mrkw->mrkd",
-                planes,
-                oh_qw,
-                preferred_element_type=jnp.float32,
-            ).astype(jnp.int32)  # [Mc, R, K, 4]
-            bit = vq_c % 16
-            pb = (((words[..., 0] << 8) | words[..., 1]) >> bit) & 1 == 1
-            sb = (((words[..., 2] << 8) | words[..., 3]) >> bit) & 1 == 1
-            return pb, sb, par0 ^ inc[-1]
-
-        chunk_fn = chunk_packed
-        carry = jnp.zeros((R, W), jnp.int32)
-    else:
-
-        def chunk_unpacked(c0, c1, par0):
-            mc = c1 - c0
-            p_idx = jnp.broadcast_to(
-                jnp.arange(mc, dtype=jnp.int32)[:, None, None], (mc, R, K)
-            )
-            flips = jnp.zeros((mc, R, N), bool).at[
-                p_idx, r_idx[c0:c1], v_idx[c0:c1]
-            ].max(tog[c0:c1], mode="drop")
-            inc = jax.lax.associative_scan(jnp.logical_xor, flips, axis=0)
-            par_excl = par0[None] ^ jnp.concatenate(
-                [jnp.zeros((1, R, N), bool), inc[:-1]], axis=0
-            )
-            vq_c = vq_s[c0:c1]
-            pb = jnp.take_along_axis(par_excl, vq_c, axis=2)  # [Mc, R, K]
-            sb = state[r_idx[c0:c1], vq_c]
-            return pb, sb, par0 ^ inc[-1]
-
-        chunk_fn = chunk_unpacked
-        carry = jnp.zeros((R, N), bool)
-
-    if n_chunks == 1:
-        pb, sb, _ = chunk_fn(0, M, carry)
-    else:
-        pbs, sbs = [], []
-        for c in range(n_chunks):
-            c0, c1 = c * Mc, min((c + 1) * Mc, M)
-            pb_c, sb_c, carry = chunk_fn(c0, c1, carry)
-            pbs.append(pb_c)
-            sbs.append(sb_c)
-        pb = jnp.concatenate(pbs, axis=0)
-        sb = jnp.concatenate(sbs, axis=0)
-    bits_new = (sb ^ pb) & q_ok  # [M, R, K]
+    for c0 in range(0, M, Mc):
+        c1 = min(c0 + Mc, M)
+        mc = c1 - c0
+        p_idx = jnp.broadcast_to(
+            jnp.arange(mc, dtype=jnp.int32)[:, None, None], (mc, R, K)
+        )
+        flips = jnp.zeros((mc, R, W), jnp.uint32).at[
+            p_idx, jnp.broadcast_to(rr, (mc, R, K)), v[c0:c1] // 32
+        ].add(bit[c0:c1])
+        inc = jax.lax.associative_scan(jnp.bitwise_xor, flips, axis=0)
+        par = par0[None] ^ jnp.concatenate(
+            [jnp.zeros((1, R, W), jnp.uint32), inc[:-1]], axis=0
+        )
+        words.append(jnp.take_along_axis(par, vq[c0:c1] // 32, axis=2))
+        par0 = par0 ^ inc[-1]
+    pw = words[0] if len(words) == 1 else jnp.concatenate(words, axis=0)
+    sw = state_w[rr, vq // 32]  # [M, R, K]
+    bits_new = (((pw ^ sw) >> (vq % 32).astype(jnp.uint32)) & one == one) & q_ok
     weights = (1 << jnp.arange(K, dtype=jnp.int32))[None, None, :]
     si_new = jnp.sum(bits_new.astype(jnp.int32) * weights, axis=2)  # [M, R]
-    w_new = _weight_lookup(
-        model, b_new, si_new, bond_xor, rows,
-        jax.default_backend() == "tpu",
-    )
-    return b_new, jnp.moveaxis(bits_new, -1, 0), w_new, {}  # bits [K, M, R]
+    w_new = _weight_lookup(model, b_new, si_new, bond_xor, rows)
+    return b_new, jnp.moveaxis(bits_new, -1, 0), w_new  # bits [K, M, R]
 
 
 def _ins_rem(n, u0, idp, dgp, *extra, M, heatbath, bw_tot):
     """Insert/remove decisions at op count ``n`` — the single definition of
     the acceptance arithmetic (eqs 19a/19b, ``diagonal.rs:141-191`` /
-    ``heatbath.rs:149-209``) shared by the sequential carry scan and both
-    passes of the speculative evaluation, so all paths are bit-identical."""
+    ``heatbath.rs:149-209``) for the sequential carry scan; the carry kernel
+    (``ops/diag_carry.py``) evaluates the same expressions in the same order,
+    so both are bit-identical."""
     mmn = (M - n).astype(jnp.float32)
     if heatbath:
         (insw,) = extra
@@ -435,98 +224,6 @@ def _ins_rem(n, u0, idp, dgp, *extra, M, heatbath, bw_tot):
         insert = idp & (u0 * mmn < ni)
         remove = dgp & (u0 * nr < (mmn + 1.0))
     return insert, remove
-
-
-def _carry_scan_spec(n0, xs, M, heatbath, bw_tot, unroll):
-    """Block-speculative evaluation of the diagonal sweep's carry scan.
-
-    The only sequential dependence left in the fast path is the op count
-    ``n``: every slot's insert/remove decision is a function of ``n`` and
-    precomputed per-slot data. Pass 0 evaluates every slot's decision at the
-    frozen sweep-start count ``n0`` (fully parallel) and prefix-sums the
-    deltas into a per-block-entry *estimate* of ``n`` — the estimate tracks
-    the sweep-long drift, so the candidate window per block only has to
-    cover the estimate's error, not the drift. Pass 1 evaluates blocks of
-    ``_SPEC_BLOCK`` slots at ``_SPEC_WINDOW`` candidate incoming counts
-    centered on each block's estimate (all blocks in parallel), a tiny
-    per-block compose scan threads the true entry counts, and pass 2 re-runs
-    every block at its true entry count (all blocks in parallel) to emit the
-    decisions. Sequential depth drops from M to 2*_SPEC_BLOCK +
-    M/_SPEC_BLOCK. Decisions are bit-identical to the sequential scan (same
-    :func:`_ins_rem` floats at the same integer counts); if any true
-    block-entry count leaves its candidate window the ``bad`` flag is
-    returned and the caller falls back to the sequential scan.
-
-    Returns ``(insert bool[M, R], remove bool[M, R], bad bool[])``.
-    """
-    R = n0.shape[0]
-    W, C = _SPEC_WINDOW, _SPEC_BLOCK
-    B = -(-M // C)
-    pad = B * C - M
-
-    def blk(a):
-        # padded slots are inert: idp/dgp pad to False so no insert/remove
-        return jnp.pad(a, ((0, pad), (0, 0))).reshape(B, C, R).swapaxes(0, 1)
-
-    xs_b = tuple(blk(a) for a in xs)  # leaves [C, B, R]
-
-    # Pass 0: parallel decision estimates for all M slots -> estimated entry
-    # count per block (exclusive prefix of the per-slot deltas). Round 1
-    # evaluates every slot at the frozen sweep-start count n0; round 2
-    # re-evaluates at round 1's estimated trajectory, collapsing most of the
-    # frozen-count error — two cheap [M, R] passes that let the candidate
-    # window stay narrow.
-    n_est = jnp.broadcast_to(n0[None, :], (M, R))
-    for _ in range(2):
-        ins0, rem0 = _ins_rem(
-            n_est, *xs, M=M, heatbath=heatbath, bw_tot=bw_tot
-        )
-        delta = ins0.astype(jnp.int32) - rem0.astype(jnp.int32)  # [M, R]
-        cum = jnp.cumsum(delta, axis=0)
-        n_est = n0[None, :] + jnp.concatenate(
-            [jnp.zeros((1, R), jnp.int32), cum[:-1]], axis=0
-        )  # [M, R] estimated count entering each slot
-    n_base = jnp.maximum(n_est[::C] - W // 2, 0)  # [B, R] per-block base
-
-    # Candidate axis minor ([B, R, W]): W is the long axis of the pass-1
-    # tensors, so it should occupy the VPU lanes (see CLAUDE.md layout
-    # note); the per-slot inputs broadcast along it.
-    cand = n_base[:, :, None] + jnp.arange(W, dtype=jnp.int32)[None, None, :]
-    bwt_s = bw_tot[:, None] if getattr(bw_tot, "ndim", 0) == 1 else bw_tot
-
-    def step1(ncur, xs_c):
-        args = tuple(a[:, :, None] for a in xs_c)  # [B, R, 1]
-        ins, rem = _ins_rem(
-            ncur, *args, M=M, heatbath=heatbath, bw_tot=bwt_s
-        )
-        return ncur + ins.astype(jnp.int32) - rem.astype(jnp.int32), None
-
-    out_n, _ = jax.lax.scan(step1, cand, xs_b, unroll=unroll)  # [B, R, W]
-
-    def compose(carry, xs_c):
-        outs_b, base_b = xs_c
-        n_in, bad = carry
-        idx = n_in - base_b
-        ok = (idx >= 0) & (idx < W)
-        nxt = jnp.take_along_axis(
-            outs_b, jnp.clip(idx, 0, W - 1)[:, None], axis=1
-        )[:, 0]
-        return (jnp.where(ok, nxt, n_in), bad | ~ok), n_in
-
-    (_, bad), n_starts = jax.lax.scan(
-        compose, (n0, jnp.zeros((R,), bool)), (out_n, n_base)
-    )  # n_starts [B, R]
-
-    def step2(ncur, xs_c):
-        ins, rem = _ins_rem(
-            ncur, *xs_c, M=M, heatbath=heatbath, bw_tot=bw_tot
-        )
-        return ncur + ins.astype(jnp.int32) - rem.astype(jnp.int32), (ins, rem)
-
-    _, (ins, rem) = jax.lax.scan(step2, n_starts, xs_b, unroll=unroll)
-    ins = ins.swapaxes(0, 1).reshape(B * C, R)[:M]
-    rem = rem.swapaxes(0, 1).reshape(B * C, R)[:M]
-    return ins, rem, jnp.any(bad)
 
 
 @functools.partial(jax.jit, static_argnames=("heatbath", "unroll"))
@@ -557,7 +254,7 @@ def _diagonal_update_fast(
 
     u = jax.random.uniform(key, (3, M, R))
     n0 = op_count(ops)
-    b_new, bits_new, w_new, _pw_extras = _parallel_weights(
+    b_new, bits_new, w_new = _parallel_weights(
         ops, state, u[1], model, hb, heatbath, bond_xor=bond_xor
     )
 
@@ -569,10 +266,7 @@ def _diagonal_update_fast(
         * (1 << jnp.arange(ops.max_legs, dtype=jnp.int32))[:, None, None],
         axis=0,
     )
-    on_tpu = jax.default_backend() == "tpu"
-    w_cur = _pw_extras.get("w_cur")
-    if w_cur is None:
-        w_cur = _weight_lookup(model, b_safe, si_cur, bond_xor, rows, on_tpu)
+    w_cur = _weight_lookup(model, b_safe, si_cur, bond_xor, rows)
     if bond_scale is not None:
         w_new = w_new * bond_scale[rows[None, :], b_new]
         w_cur = w_cur * bond_scale[rows[None, :], b_safe]
@@ -581,12 +275,9 @@ def _diagonal_update_fast(
         bw_tot = beta * hb.total  # [R]
         if _use_class_tables(model):
             # max over the class row == max_diag_w()[b_new] exactly (same
-            # floats, order-independent max), selected without a gather;
-            # the precompute's fetched classes are reused when available.
+            # floats, order-independent max), selected without a gather.
             maxw_cls = jnp.max(model.wtab, axis=1)  # [C]
-            cls_new = _pw_extras.get("cls_new")
-            if cls_new is None:
-                cls_new = _bond_fetch(model.cls, b_new, on_tpu)
+            cls_new = _bond_fetch(model.cls, b_new)
             maxw = _class_select(maxw_cls[:, None], cls_new, jnp.int32(0))
         else:
             maxw = jnp.max(model.diag_w[b_new], axis=-1)
@@ -611,33 +302,10 @@ def _diagonal_update_fast(
         xs = (u[0], is_ident, is_diag, ins_w)
     else:
         xs = (u[0], is_ident, is_diag, num_ins, num_rem)
-    if _FORCE_CARRY_KERNEL is not None:
-        use_kernel = _FORCE_CARRY_KERNEL
-    elif _KERNEL_ENV in ("0", "1"):
-        use_kernel = _KERNEL_ENV == "1" and jax.default_backend() == "tpu"
-    else:
-        use_kernel = (
-            jax.default_backend() == "tpu" and R >= _CARRY_KERNEL_MIN_R
-        )
-    if use_kernel:
-        from isingmontecarlo_tpu.ops.diag_carry import carry_decisions
-
-        if heatbath:
-            p1, p2 = ins_w, ins_w
-        else:
-            p1, p2 = num_ins, num_rem
+    if backend.gpu_kernels():
+        p1, p2 = (ins_w, None) if heatbath else (num_ins, num_rem)
         insert, remove = carry_decisions(
-            n0, u[0], is_ident, is_diag, p1, p2,
-            bwt if heatbath else jnp.zeros((R,), jnp.float32),
-            M=M, heatbath=heatbath,
-            interpret=jax.default_backend() != "tpu",
-        )
-    elif M >= _SPEC_MIN_M:
-        ins_s, rem_s, bad = _carry_scan_spec(n0, xs, M, heatbath, bwt, unroll)
-        insert, remove = jax.lax.cond(
-            bad,
-            lambda: jax.lax.scan(step, n0, xs, unroll=unroll)[1],
-            lambda: (ins_s, rem_s),
+            n0, u[0], is_ident, is_diag, p1, p2, bwt, heatbath=heatbath
         )
     else:
         _, (insert, remove) = jax.lax.scan(step, n0, xs, unroll=unroll)
@@ -799,7 +467,7 @@ def _diagonal_update_scan(
         u[2],
     )
     # unroll: the per-slot body is small vector work ([R]-wide); unrolling
-    # amortizes the TPU loop overhead over several imaginary-time slots.
+    # amortizes the loop overhead over several imaginary-time slots.
     (_, _), (new_bond, new_in) = jax.lax.scan(
         step, (state, n0), xs, unroll=unroll
     )

@@ -9,7 +9,7 @@ adjacent op (updating the p=0 state when wrapping the periodic boundary,
 ``directed_loop.rs:267-287``), and stop when the walk returns to the initial
 (op, leg) (``directed_loop.rs:258-297``).
 
-TPU-native form: every replica advances its own walker in lockstep inside one
+Batched form: every replica advances its own walker in lockstep inside one
 ``lax.while_loop``; worldline adjacency (next/prev op per leg) is derived once
 per update by sorting legs along imaginary time (ops do not move during loop
 updates — only their in/out bits toggle). Exit-leg weights are table lookups

@@ -1,8 +1,8 @@
-"""Hamiltonian bond tables — the TPU replacement for the reference's
+"""Hamiltonian bond tables — the batched replacement for the reference's
 ``Hamiltonian`` trait / ``Ham`` closure adapter (``src/sse/ham.rs:4-45``,
 ``src/sse/qmc_traits/diagonal.rs:5-12``).
 
-Where the reference evaluates matrix elements through closures per op, the TPU
+Where the reference evaluates matrix elements through closures per op, this
 build precompiles every bond's diagonal matrix elements into a dense table
 ``diag_w[NB, 2^K]`` (and optionally the full ``2^K x 2^K`` matrices for
 directed-loop updates), so the hot update loops are pure gathers.
@@ -47,10 +47,8 @@ class BondModel:
         # Weight-class tables (see :func:`class_tables`): ``cls i32[NB]`` maps
         # each bond to its distinct-``diag_w``-row class, ``wtab f32[C, 2^K]``
         # holds the distinct rows, so ``diag_w[b, s] == wtab[cls[b], s]``
-        # exactly. The diagonal update's TPU fast path uses them to replace
-        # per-lane weight-table gathers with a tiny select chain (the
-        # ``[M, R, 2^K]`` row-gather form puts ``2^K`` on the VPU lane axis —
-        # measured 18 ms per lookup at [M~7000, R=512] vs ~0.1 ms this way).
+        # exactly. The diagonal update's fast path uses them to replace
+        # weight-table gathers with a tiny select chain.
         self.cls = cls
         self.wtab = wtab
         # Same factorization over flattened ``full_w`` rows (cluster/loop

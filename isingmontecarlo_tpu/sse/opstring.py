@@ -1,8 +1,8 @@
-"""Tensor operator-string storage — the TPU replacement for ``FastOps``
+"""Tensor operator-string storage — the batched replacement for ``FastOps``
 (``src/sse/fast_ops.rs:35-49``).
 
 The reference threads doubly-linked lists through heap nodes to get O(1)
-insert/remove at any imaginary-time slot ``p``. On TPU we store the op string
+insert/remove at any imaginary-time slot ``p``. Here the op string is stored
 as fixed-capacity struct-of-arrays tensors and *derive* per-variable adjacency
 on demand with a sort along the time axis (segmented-scan style), which
 removes all mutation bookkeeping and vectorizes across replicas:
@@ -12,8 +12,8 @@ removes all mutation bookkeeping and vectorizes across replicas:
   (the ``BasicOp`` substates, ``src/sse/qmc_traits/op_container.rs:163-401``).
 
 Layout note: imaginary time ``M`` is the second-to-last axis and replicas
-``R`` the last (lane) axis, so elementwise update math vectorizes across
-replicas in VPU lanes and sorts/scans run along sublanes.
+``R`` the last (minor) axis, so elementwise update math vectorizes across
+replicas with contiguous loads, and sorts/scans run along time.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from isingmontecarlo_tpu.sse.model import BondModel
-from isingmontecarlo_tpu.sse.tables import bond_fetch, bond_fetch_multi
+from isingmontecarlo_tpu.sse.tables import bond_fetch
 
 
 class OpString(NamedTuple):
@@ -119,18 +119,13 @@ def leg_valid(ops: OpString, model: BondModel) -> jax.Array:
 
 
 def op_vars(ops: OpString, model: BondModel) -> jax.Array:
-    """i32[K, M, R]: variable per leg (−1 where invalid).
-
-    Built from per-leg take0 fetches in the [K, M, R] lane-major layout: the
-    ``bond_vars[b] -> [M, R, K]`` row-gather form pays the 64x lane padding
-    of a K-minor tiling (see ``sse/tables.bond_fetch``)."""
+    """i32[K, M, R]: variable per leg (−1 where invalid), one per-leg fetch
+    each so the result is laid out legs-major."""
     N = model.nvars
     K = model.max_legs
     b = jnp.maximum(ops.bond, 0)
     bv_nn = jnp.where(model.bond_vars >= 0, model.bond_vars, N)
-    v = jnp.stack(
-        bond_fetch_multi([bv_nn[:, k] for k in range(K)], b, [N] * K)
-    )  # [K, M, R]
+    v = jnp.stack([bond_fetch(bv_nn[:, k], b) for k in range(K)])  # [K, M, R]
     return jnp.where((ops.bond >= 0)[None] & (v < N), v, -1)
 
 
@@ -152,7 +147,7 @@ def _seg_broadcast(flags, vals, reverse: bool = False):
 
 def worldline_maps(ops: OpString, model: BondModel):
     """Flat-leg successor AND predecessor maps (periodic) derived by one sort
-    of all legs along imaginary time — the TPU replacement for the
+    of all legs along imaginary time — the batched replacement for the
     reference's per-variable doubly-linked lists (``fast_ops.rs:176-207``).
 
     Flat leg index ``f = l*M + p``. Returns ``(wnext, wprev, leg_var,
@@ -161,8 +156,7 @@ def worldline_maps(ops: OpString, model: BondModel):
     need per-variable first-leg lookups.
 
     Gather-free on the hot path: the flat index rides the leg sort as a
-    payload (multi-operand sort payloads are nearly free; per-lane
-    ``take_along_axis`` gathers scalarize on TPU — see CLAUDE.md), the
+    payload operand, the
     sorted variable comes back out of the sort key itself, wrap targets are
     segmented-broadcast scans of ``order`` from run heads/tails, and the
     back-permute to flat leg space is a second sort keyed by the
@@ -207,8 +201,7 @@ def worldline_maps(ops: OpString, model: BondModel):
 
     # Back-permute to flat leg space with a sort keyed by the permutation
     # (order is a bijection, so payload row j lands at row order[j]) — one
-    # multi-operand sort instead of two per-lane [KM, R] scatters, which TPU
-    # scalarizes (~linear in grid elements; see CLAUDE.md sort note).
+    # multi-operand sort instead of two [KM, R] scatters.
     _, wnext, wprev = jax.lax.sort(
         (order, tgt_next, tgt_prev), dimension=0, num_keys=1
     )

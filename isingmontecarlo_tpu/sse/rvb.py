@@ -26,12 +26,12 @@ Semantics (mirroring the reference):
    off-diagonal), flip interior ops symmetrically, and XOR the p=0 state with
    the cluster mask where the cluster includes p=0.
 
-TPU-native form: everything is batched over replicas. The reference's
+Batched form: everything is batched over replicas. The reference's
 heap-merged sparse sweep becomes a dense ``lax.scan`` over all imaginary-time
 slots; the boundary-weight totals the reference maintains incrementally are
 recomputed at each slot as an O(NE) vectorized reduction over the static
 edge list from the carried ``(substate, in-cluster)`` masks — identical
-values, far fewer per-step ops, and the work vectorizes across VPU lanes
+values, far fewer per-step ops, and the work vectorizes across replicas
 (the heap only skips work; the dense scan does the same update at every
 slot, masked). The weighted BFS becomes a Gumbel-categorical pop loop over a
 fixed element space of size M + N. The subsection machinery
@@ -128,43 +128,6 @@ def _take0(arr, idx):
     return jnp.take_along_axis(arr, idx, axis=0)
 
 
-# Flat-table size cap for the MXU one-hot gather: the one-hot operand is
-# idx-elements x T, so keep T small (RVB lattices are small; the gate also
-# keeps the fallback exact on any backend).
-_MXU_TABLE_MAX = 4096
-
-
-def _table_f32(table_flat, idx):
-    """Exact f32 table lookup ``table_flat[idx]``.
-
-    TPU gathers with per-lane dynamic indices scalarize (~0.5-0.9 ms for a
-    [R, M] index set at the RVB benchmark sizes — they dominated the fused
-    pass); on TPU with a small table the lookup rides the MXU instead: the
-    f32 bit patterns split into four byte planes (each < 256, exact in
-    bf16), a one-hot of the index selects each plane's byte (f32
-    accumulation of a single matched 0/1 term is exact), and the bytes
-    recombine bitwise — bit-exact against the plain gather at ~4x the speed
-    (measured 0.12 vs 0.5-0.9 ms)."""
-    T = table_flat.shape[0]
-    if jax.default_backend() != "tpu" or T > _MXU_TABLE_MAX:
-        return table_flat[idx]
-    bits = jax.lax.bitcast_convert_type(table_flat, jnp.int32)
-    planes = jnp.stack(
-        [(bits >> s) & 0xFF for s in (0, 8, 16, 24)], axis=-1
-    )  # [T, 4]
-    oh = (idx[..., None] == jnp.arange(T, dtype=jnp.int32)).astype(jnp.bfloat16)
-    sel = jnp.einsum(
-        "...t,td->...d",
-        oh,
-        planes.astype(jnp.bfloat16),
-        preferred_element_type=jnp.float32,
-    ).astype(jnp.int32)
-    word = sel[..., 0] | (sel[..., 1] << 8) | (sel[..., 2] << 16) | (
-        sel[..., 3] << 24
-    )
-    return jax.lax.bitcast_convert_type(word, jnp.float32)
-
-
 def _const_inventory(ops: OpString, model: BondModel):
     """Sorted constant-op inventory per replica.
 
@@ -179,19 +142,15 @@ def _const_inventory(ops: OpString, model: BondModel):
     M, R = ops.bond.shape
     b = jnp.maximum(ops.bond, 0)
     occupied = ops.bond >= 0
-    # take0 fetches: the per-lane [M, R] gathers from [NB] tables
-    # scalarize on TPU (~0.3 GB/s — sse/tables.bond_fetch).
     is_const = (
         bond_fetch(model.is_constant.astype(jnp.int32), b) == 1
     ) & occupied  # [M, R]
-    var0 = bond_fetch(
-        jnp.maximum(model.bond_vars[:, 0], 0), b, vmax=model.nvars
-    )  # [M, R] constant ops are single-var
+    # [M, R]; constant ops are single-var
+    var0 = bond_fetch(jnp.maximum(model.bond_vars[:, 0], 0), b)
     p_idx = jnp.arange(M, dtype=jnp.int32)[:, None]
 
     key = jnp.where(is_const, var0 * M + p_idx, _BIG)
-    # Value sort only — the permutation is never needed, and argsort +
-    # gather costs an extra per-lane [M, R] gather on TPU.
+    # Value sort only — the permutation is never needed.
     skey = jax.lax.sort(key, dimension=0)
     valid = skey < _BIG
     cvar = jnp.where(valid, skey // M, model.nvars)
@@ -209,8 +168,8 @@ def _const_inventory(ops: OpString, model: BondModel):
     ncount = jnp.sum(valid, axis=0).astype(jnp.int32)
     # has_const: vars with >= 1 constant op == the distinct cvar values, i.e.
     # the var-group heads of the (already sorted) cvar column. Sort-compact
-    # the <= min(N, M) head rows and scatter only those — the full [M, R]
-    # ravel scatter scalarizes on TPU at ~linear cost in grid elements.
+    # the <= min(N, M) head rows and scatter only those, not the full
+    # [M, R] grid.
     Tc = min(model.nvars, M)
     head_v = jax.lax.sort(
         jnp.where(seg_start & valid, cvar, _BIG), dimension=0
@@ -281,13 +240,13 @@ def _build_cluster(key, ops, model, tables: RvbTables, cvar, cpos, cnext, valid,
     # Cyclic-previous within var groups: prev[cnext[i]] = i. cnext is a
     # permutation (cycles within var groups, self-maps on padding), so the
     # inverse is one sort keyed by it — payload i lands at row cnext[i] —
-    # instead of a per-lane [M, R] scatter (see CLAUDE.md sort note).
+    # instead of an [M, R] scatter.
     src_mr = jnp.broadcast_to(jnp.arange(M, dtype=jnp.int32)[:, None], (M, R))
     _, cprev = jax.lax.sort((cnext, src_mr), dimension=0, num_keys=1)
     cprev = jnp.where(valid, cprev, src_mr)
 
     # Loop-invariant M-minor views for the per-iteration overlap pass (the
-    # lane dim should be the long axis; see CLAUDE.md layout note).
+    # long axis minor).
     cvar_t = cvar.T  # [R, M]
     valid_t = valid.T
     seg_s_t = seg_s.T
@@ -376,8 +335,8 @@ def _cluster_masks(popped, ops, model, cvar, cpos, cnext, valid):
     # At most MAX_POPS elements are popped per replica (one per pop
     # iteration of _build_cluster), so the toggle/wrap contributors compact
     # into [MAX_POPS, R] via a sort — the parity scatters then touch 16-row
-    # grids instead of [M, R] ones (TPU per-lane scatters cost ~linear in
-    # grid elements). Unpopped rows sort to _BIG and drop as out-of-bounds.
+    # grids instead of [M, R] ones. Unpopped rows sort to _BIG and drop as
+    # out-of-bounds.
     # Bit-identical: the dropped rows contributed 0 before.
     T = min(MAX_POPS, M)
     cols_p = jnp.broadcast_to(jnp.arange(R, dtype=jnp.int32)[None, :], (T, R))
@@ -409,7 +368,7 @@ def _cluster_cand_edges(popped, ops, model, tables, cvar, valid):
     — one endpoint in the cluster — is incident to one of them. Restricting
     the fused acceptance+mutation pass to this candidate set drops its
     footprint from O(M·R·NE) to O(M·R·A) with ``A`` independent of lattice
-    size — the TPU analog of the reference's heap sweep visiting only ops
+    size — the batched analog of the reference's heap sweep visiting only ops
     adjacent to the cluster (``calculate_flip_prob``, ``rvb.rs:649-946``).
     Duplicate edges are masked to padding (they would double-count the
     boundary weight totals)."""
@@ -864,13 +823,10 @@ def _event_parity(v_idx, ev, base, return_total=False):
     ``base: bool[R, N]``. Returns ``bool[M, R, N]``: the parity state *just
     below* slot p (events strictly before p applied to ``base``).
 
-    The event scatter rides the MXU as a one-hot einsum (TPU per-lane
-    scatters are scalarized, see ``diagonal.py::_parallel_weights``), and so
-    does the prefix itself: parity = exclusive-prefix *count* mod 2, and the
-    prefix count is a strictly-lower-triangular matmul within blocks of 128
-    slots plus an exclusive cumsum of block totals (``associative_scan`` XOR
-    measured 1.1 ms at [224, 64, 64] — its log-depth slice/concat passes are
-    pure overhead on small tensors). Exact: all
+    The event scatter is a one-hot einsum, and so is the prefix itself:
+    parity = exclusive-prefix *count* mod 2, and the prefix count is a
+    strictly-lower-triangular matmul within blocks of 128 slots plus an
+    exclusive cumsum of block totals. Exact at any dot precision: all
     summands are 0/1 in bf16, accumulated in f32 (integer counts < 2^24),
     and the one-hot match is unique per (slot, var).
     """
@@ -922,7 +878,7 @@ def _fused_vectorized(ops, state, model, tables, in0, is_toggle, key,
     exclusive-prefix XOR parities over imaginary time, computed here in
     log-depth with :func:`_event_parity`; every per-slot quantity of the
     scan body then vectorizes over the whole M axis, and ``logm`` is a plain
-    reduction. This is the TPU-native replacement for the reference's
+    reduction. This is the batched replacement for the reference's
     heap-merged sparse sweep (``calculate_flip_prob``, ``rvb.rs:649-946``):
     instead of *skipping* slots, all slots are processed in parallel.
 
@@ -930,12 +886,9 @@ def _fused_vectorized(ops, state, model, tables, in0, is_toggle, key,
     gumbel draws, same discrete arithmetic); ``p_acc`` can differ by f32
     rounding only (summation order of the log-weight accumulation).
 
-    Layout: the elementwise-heavy tensors put imaginary time M in the minor
-    (lane) dimension — ``[R, NE, M]`` / ``[K, R, M]`` — because TPU VPU
-    lanes are 128-wide and an NE- or R-minor layout wastes most of them
-    (measured 4.4x slower for a 30-op chain at [1408, 64, 32] vs
-    [64, 32, 1408]). The parity pass stays in its MXU-friendly form and is
-    transposed once.
+    Layout: the elementwise-heavy tensors put imaginary time M, the long
+    axis, in the minor dimension — ``[R, NE, M]`` / ``[K, R, M]``. The
+    parity pass stays in its matmul form and is transposed once.
 
     ``gumbels`` optionally injects the rotation noise ``f32[M, R, NE]``
     (``None`` = draw from ``key``); ``want_carry=True`` returns the raw
@@ -1016,14 +969,13 @@ def _fused_vectorized(ops, state, model, tables, in0, is_toggle, key,
         par2 = _event_parity(v2, ev2, base2)  # [M, 2R, N]
     par2_t = jnp.moveaxis(par2, 0, -1)  # [2R, N, M] (one relayout pass)
 
-    # bf16 one-hot matmuls are exact for 0/1 operands and ride the MXU, but
-    # XLA:CPU's dot thunk rejects bf16 in this contraction layout — use f32
-    # off-TPU (identical values).
-    mm_dt = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    # One-hot selection matmuls in f32 at default precision. Exact on every
+    # backend: operands are 0/1 (exact in TF32 and bf16 as well as f32) and
+    # each output sums exactly one matched term.
+    mm_dt = jnp.float32
 
-    # --- static-edge endpoint bits via one MXU one-hot matmul --------------
-    # (axis-2 gathers with dynamic model indices would scalarize on TPU;
-    # substates and incl share the matmul, batched along the replica axis)
+    # --- static-edge endpoint bits via one one-hot matmul ------------------
+    # (substates and incl share the matmul, batched along the replica axis)
     iota_n = jnp.arange(N, dtype=jnp.int32)[:, None]
     if cand is None:
         oh_ab = jnp.concatenate(
@@ -1126,15 +1078,13 @@ def _fused_vectorized(ops, state, model, tables, in0, is_toggle, key,
     nsub = 1 << K
     if model.full_w is not None:
         fw = model.full_w.reshape(-1)
-        w_cur = _table_f32(fw, (b_t * nsub + si) * nsub + so)
-        w_flip = _table_f32(
-            fw, (b_t * nsub + (si ^ mask_bits)) * nsub + (so ^ mask_bits)
-        )
+        w_cur = fw[(b_t * nsub + si) * nsub + so]
+        w_flip = fw[(b_t * nsub + (si ^ mask_bits)) * nsub + (so ^ mask_bits)]
     else:
         dw = model.diag_w.reshape(-1)
-        w_cur = jnp.where(si == so, _table_f32(dw, b_t * nsub + si), 0.0)
+        w_cur = jnp.where(si == so, dw[b_t * nsub + si], 0.0)
         w_flip = jnp.where(
-            si == so, _table_f32(dw, b_t * nsub + (si ^ mask_bits)), 0.0
+            si == so, dw[b_t * nsub + (si ^ mask_bits)], 0.0
         )
     ratio_ok = completely_in & ~is_boundary_op
     logm_slot = logm_slot + jnp.where(
@@ -1411,8 +1361,8 @@ def compact_ops(ops: OpString, mc: int):
 
     One multi-operand sort: key = slot id for occupied slots, slot id + M
     for identities, so ascending order is (occupied in time order, then
-    identities in time order); payloads ride the sort (TPU multi-operand
-    sort payloads are nearly free — CLAUDE.md sort note). Returns
+    identities in time order); payloads ride the sort as extra operands.
+    Returns
     ``(ops_c, tail, sk)``: the compact string, the sorted payload rows
     beyond ``mc`` (needed to rebuild the full string), and the sorted key
     array ``i32[M, R]`` (``sk % M`` = original slot of each sorted row).
@@ -1437,8 +1387,7 @@ def compact_ops(ops: OpString, mc: int):
 def uncompact_ops(ops_c: OpString, tail, sk) -> OpString:
     """Inverse of :func:`compact_ops` after in-place rewrites of the prefix:
     concatenate the (rewritten) prefix with the untouched tail rows and sort
-    by original slot id — the payload back-sort that replaces a per-lane
-    scatter (CLAUDE.md sort note)."""
+    by original slot id — the payload back-sort that replaces a scatter."""
     M, R = sk.shape
     K = ops_c.max_legs
     orig = sk - jnp.where(sk >= M, jnp.int32(M), 0)

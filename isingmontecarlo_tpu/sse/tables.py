@@ -1,14 +1,8 @@
-"""Fast exact weight-table lookups for TPU.
+"""Exact weight-table lookups on ``[M, R]`` (slot, replica) index grids.
 
-TPU lowers *row* gathers from a small table (``table[idx]`` where each
-result is a contiguous trailing-axis row, e.g. ``model.bond_vars[b]``) well
-— measured ~0.01 ms for a [M, R] index set — while *scalar* gathers with
-per-lane combined indices (``diag_w[b, si]`` or the flattened equivalent)
-scalarize to ~0.5-0.9 ms at the same shapes. Every weight lookup keyed by
-(bond, substate) therefore gathers the bond's whole row and selects the
-substate column with a where-chain: bit-exact (selects the original f32
-entries), backend-agnostic, and the select chain is cheap elementwise work
-(C comparisons on the index grid).
+Every lookup keyed by (bond, substate) selects original f32 table entries,
+so the fast diagonal, cluster and loop updates stay bit-identical to their
+sequential references.
 """
 
 from __future__ import annotations
@@ -16,95 +10,17 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# take0 (ops/take_kernel.py) encodes table values in base-128 digit pairs.
-_TAKE0_MAX = 1 << 14
 
-
-def bond_fetch(tab: jnp.ndarray, idx: jnp.ndarray, on_tpu: bool | None = None,
-               vmax: int | None = None):
-    """``tab[idx]`` for a small per-bond int table ``tab[NB]`` (values in
-    ``[0, 2^14)``) and a per-lane index grid ``idx i32[E, R]``. On TPU the
-    per-lane gather scalarizes (~0.3 GB/s — CLAUDE.md), so it rides the
-    two-stage digit-gather kernel (``ops/take_kernel.take0``) instead; the
-    row-gather alternative ``tab2d[idx] -> [E, R, cols]`` puts ``cols`` on
-    the VPU lane axis (padded to 128), measured 18.6 ms per [M~7000, R=512]
-    prep vs ~0.1 ms per take0 call."""
-    if on_tpu is None:
-        on_tpu = jax.default_backend() == "tpu"
-    if (
-        on_tpu
-        and tab.shape[0] <= _TAKE0_MAX
-        and (vmax is None or vmax < _TAKE0_MAX)
-    ):
-        from isingmontecarlo_tpu.ops.take_kernel import take0
-
-        t = jnp.broadcast_to(
-            tab.astype(jnp.int32)[:, None], (tab.shape[0], idx.shape[-1])
-        )
-        return take0(t, idx, interpret=jax.default_backend() != "tpu")
+def bond_fetch(tab: jnp.ndarray, idx: jnp.ndarray):
+    """``tab[idx]`` as int32 for a small per-bond int table ``tab[NB]`` and
+    an index grid ``idx i32[E, R]``."""
     return tab.astype(jnp.int32)[idx]
 
 
-def bond_fetch_multi(tabs, idx: jnp.ndarray, vmaxs,
-                     on_tpu: bool | None = None):
-    """Fetch several small per-bond int tables at the same index grid with
-    ONE take0 pass when their packed bit widths fit 24 bits (the kernel's
-    exact-f32 value cap): per-call cost at [M~7000, R=512] is ~1.6 ms
-    dispatch/issue-bound, so packing K tables is ~K-fold cheaper than K
-    calls. ``tabs``: list of ``[NB]`` int arrays; ``vmaxs``: their maximum
-    values (static ints). Returns a tuple of fetched ``[E, R]`` grids,
-    bit-identical to per-table fetches."""
-    if on_tpu is None:
-        on_tpu = jax.default_backend() == "tpu"
-    bits = [max(int(v), 1).bit_length() for v in vmaxs]
-    NB = tabs[0].shape[0]
-    if (
-        on_tpu
-        and NB <= _TAKE0_MAX
-        and sum(bits) <= 24
-        and len(tabs) > 1
-    ):
-        from isingmontecarlo_tpu.ops.take_kernel import take0
-
-        shifts = []
-        acc = 0
-        for w in reversed(bits):  # last table in the low bits
-            shifts.append(acc)
-            acc += w
-        shifts = shifts[::-1]
-        packed = tabs[0].astype(jnp.int32) << shifts[0]
-        for t, sh in zip(tabs[1:], shifts[1:]):
-            packed = packed | (t.astype(jnp.int32) << sh)
-        tbl = jnp.broadcast_to(packed[:, None], (NB, idx.shape[-1]))
-        digits = -(-sum(bits) // 7)
-        out = take0(
-            tbl, idx, digits=max(2, digits),
-            interpret=jax.default_backend() != "tpu",
-        )
-        return tuple(
-            (out >> sh) & ((1 << w) - 1) for sh, w in zip(shifts, bits)
-        )
-    return tuple(
-        bond_fetch(t, idx, on_tpu=on_tpu, vmax=v)
-        for t, v in zip(tabs, vmaxs)
-    )
-
-
-def fetch_xor(bond_xor: jnp.ndarray, b: jnp.ndarray,
-              on_tpu: bool | None = None):
+def fetch_xor(bond_xor: jnp.ndarray, b: jnp.ndarray):
     """Per-replica sign-pattern mask ``bond_xor[r, b[.., r]]`` for a
-    ``[R, NB]`` table and ``b i32[M, R]`` (see ``diagonal._xor_si``);
-    per-replica table columns ride take0 natively."""
-    if on_tpu is None:
-        on_tpu = jax.default_backend() == "tpu"
-    R, NB = bond_xor.shape
-    if on_tpu and NB <= _TAKE0_MAX:
-        from isingmontecarlo_tpu.ops.take_kernel import take0
-
-        return take0(
-            bond_xor.T.astype(jnp.int32), b,
-            interpret=jax.default_backend() != "tpu",
-        )
+    ``[R, NB]`` table and ``b i32[M, R]`` (see ``diagonal._xor_si``)."""
+    R = bond_xor.shape[0]
     rows = jnp.arange(R, dtype=jnp.int32)
     return bond_xor[rows.reshape((1,) * (b.ndim - 1) + (-1,)), b]
 
@@ -141,57 +57,16 @@ def row_select(table: jnp.ndarray, row_idx: jnp.ndarray, col_idx: jnp.ndarray):
     return out
 
 
-# Chunk width for the two-level searchsorted; the boundary-chunk row gather
-# is the fast whole-row kind (CLAUDE.md gather asymmetry), so G trades a
-# wider compare-sum against fewer coarse chunks. 32 keeps both level sizes
-# <= 128 lanes for every reference table (NB <= 4096).
-_SS_GROUP = 32
-
-
-def searchsorted_left(table: jnp.ndarray, q: jnp.ndarray,
-                      on_tpu: bool | None = None) -> jnp.ndarray:
-    """``jnp.searchsorted(table, q, side='left')`` for a sorted f32 table
-    ``[NB]`` (or per-replica ``[R, NB]``, searched per replica against
-    ``q[M, R]``'s columns) and a per-lane query grid ``q[M, R]``, without
-    the binary search whose ~log2(NB) rounds of per-lane gathers scalarize
-    on TPU
-    (measured: the heat-bath suite rows ran ~3x their Metropolis twins and
-    the whole gap was this lookup; ``heatbath.rs:148-209`` is the reference
-    sampler being replaced). Two exact levels: (1) count chunks entirely
-    below ``q`` by compare-summing the C chunk maxima, (2) row-gather the
-    single boundary chunk (fast whole-row gather) and count within it.
-    Every comparison is against original f32 entries, so the result is
-    bit-identical to ``searchsorted``'s count of ``table < q``."""
-    if on_tpu is None:
-        on_tpu = jax.default_backend() == "tpu"
-    NB = table.shape[-1]
-    G = _SS_GROUP
-    if not on_tpu or NB <= 2 * G:
-        if table.ndim == 2:  # per-replica [R, NB], q[M, R]
-            return jax.vmap(
-                lambda t, qq: jnp.searchsorted(t, qq), in_axes=(0, 1),
-                out_axes=1,
-            )(table, q).astype(jnp.int32)
-        return jnp.searchsorted(table, q).astype(jnp.int32)
+def searchsorted_left(table: jnp.ndarray, q: jnp.ndarray) -> jnp.ndarray:
+    """``jnp.searchsorted(table, q, side='left')`` as int32 for a sorted f32
+    table ``[NB]``, or per replica for ``[R, NB]`` tables against the
+    columns of ``q[M, R]`` (heat-bath proposal sampling,
+    ``heatbath.rs:148-209``)."""
     if table.ndim == 2:
-        # Per-replica tables [R, NB] (heterogeneous tempering ladders):
-        # a direct fused compare-count over the table axis — exact, no
-        # gathers, and elementwise-parallel; this path is never on the
-        # single-model benchmark surface, so simplicity wins over the
-        # two-level trick (whose boundary-row fetch would need a batched
-        # per-lane gather here).
-        return jnp.sum(
-            (table[None, :, :] < q[:, :, None]).astype(jnp.int32), axis=-1
-        )
-    C = -(-NB // G)
-    tbl = jnp.pad(
-        table, (0, C * G - NB), constant_values=jnp.inf
-    ).reshape(C, G)
-    qx = q[..., None]
-    coarse = jnp.sum((tbl[:, -1] < qx).astype(jnp.int32), axis=-1)
-    b_g = jnp.minimum(coarse, C - 1)
-    fine = jnp.sum((tbl[b_g] < qx).astype(jnp.int32), axis=-1)
-    return b_g * G + fine
+        return jax.vmap(
+            lambda t, qq: jnp.searchsorted(t, qq), in_axes=(0, 1), out_axes=1,
+        )(table, q).astype(jnp.int32)
+    return jnp.searchsorted(table, q).astype(jnp.int32)
 
 
 def row_select3(table: jnp.ndarray, b_idx, i_idx, j_idx):

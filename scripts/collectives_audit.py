@@ -1,5 +1,5 @@
-"""Multi-chip communication audit for the fused tempering chunk (VERDICT.md
-round-2 Next #8): on a virtual 8-device mesh, compile
+"""Multi-device communication audit for the fused tempering chunk: on a
+virtual 8-device mesh, compile
 ``tempering_sweep_chunk`` with the replica axis sharded and inventory every
 XLA collective in the optimized HLO — op kind, shape, and bytes moved — then
 record weak scaling R=64 -> 512.
@@ -29,7 +29,7 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from isingmontecarlo_tpu import lattice
 from isingmontecarlo_tpu.parallel.tempering import (

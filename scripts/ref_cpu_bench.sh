@@ -3,7 +3,7 @@
 # run the C++ reference-equivalent SSE TFIM benchmark
 # (isingmontecarlo_tpu/native/ref_single_core.cpp) on the exact reference
 # benchmark lattice, then compute ESS/sec with the same integrated-
-# autocorrelation methodology bench.py uses for the TPU numerator.
+# autocorrelation methodology bench.py uses for the GPU numerator.
 #
 # Usage: bash scripts/ref_cpu_bench.sh [L] [beta] [steps]
 set -eu
@@ -19,10 +19,8 @@ fi
 OUT=$(mktemp)
 "$BIN" "$L" "$BETA" 1000 "$STEPS" 1234 --dump-n > "$OUT"
 tail -1 "$OUT"
-PYTHONPATH=/root/repo python - "$OUT" <<'EOF'
+JAX_PLATFORMS=cpu PYTHONPATH="$PWD" python - "$OUT" <<'EOF'
 import sys
-import jax
-jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from isingmontecarlo_tpu.analysis import effective_sample_size
 

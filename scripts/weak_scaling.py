@@ -1,14 +1,12 @@
 #!/usr/bin/env python
-"""Multi-chip weak/strong-scaling table for the sharded tempering chunk on
-the virtual CPU mesh (round-4 verdict Next #7): ms/sweep of
+"""Weak/strong-scaling table for the sharded tempering chunk: ms/sweep of
 ``tempering_sweep_chunk_sharded`` at fixed R while the replica axis shards
 over 1, 2, 4, 8 devices. The collectives audit (scripts/collectives_audit.py)
-proves WHAT moves; this records how it scales. On a real pod the same code
-rides ICI (the mesh axis is the only change); CPU-mesh numbers measure the
-sharding overhead structure, not chip throughput.
+shows what moves; this records how it scales. On the virtual CPU mesh the
+numbers show the sharding overhead's structure, not device throughput.
 
-Run with:
-  XLA_FLAGS=--xla_force_host_platform_device_count=8 ISING_FORCE_CPU=1 \
+Run with (virtual CPU mesh):
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python scripts/weak_scaling.py [L] [R,R,...] [nsweeps]
 """
 import os
@@ -16,15 +14,11 @@ import sys
 import time
 
 import jax
-
-if os.environ.get("ISING_FORCE_CPU", "1") == "1":
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from isingmontecarlo_tpu import lattice
 from isingmontecarlo_tpu.parallel.tempering import (

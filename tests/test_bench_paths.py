@@ -1,7 +1,6 @@
-"""Driver-path regression guards: the bench record rides subprocess runs of
-``scripts/ess32.py`` (north star #2), so a crash there silently costs the
-round its ESS record (it did in rounds 2-4). These smokes run the actual
-scripts through a subprocess exactly as bench.py does, on CPU."""
+"""Regression guards for ``scripts/ess32.py`` (north star #2; bench.py calls
+its ``measure`` in-process): the pinned and growth modes run end to end as a
+command-line script, on CPU."""
 
 import json
 import os
@@ -13,7 +12,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _run_ess32(extra_env, args):
     env = dict(os.environ)
-    env["ISING_FORCE_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
     env.pop("ISING_ESS_CHUNK", None)
     env.pop("ISING_ESS_NOPIN", None)
     env.update(extra_env)

@@ -113,49 +113,47 @@ class TestCheckerboard:
 
 
 class TestCompactColorLayout:
-    def test_split_merge_roundtrip(self):
-        from isingmontecarlo_tpu.ops.checkerboard import merge_colors, split_colors
+    """The checkerboard kernel's half-lattice indexing (ops/checkerboard.py):
+    colour ``c`` site ``(y, x)`` is half-row entry ``x // 2`` of row ``y``,
+    and entry ``xh`` of row ``y`` is column ``2 * xh + ((y + c) & 1)``."""
 
+    def test_split_merge_roundtrip(self):
         rng = np.random.default_rng(0)
-        s = rng.integers(0, 2, (3, 8, 8)).astype(bool)
-        eo = split_colors(jnp.asarray(s))
-        assert eo.shape == (3, 2, 8, 4)
-        assert np.array_equal(np.asarray(merge_colors(eo)), s)
+        L = 8
+        s = rng.integers(0, 2, (3, L, L)).astype(bool)
+        y = np.arange(L)[:, None]
+        xh = np.arange(L // 2)[None, :]
+        merged = np.zeros_like(s)
+        for c in range(2):
+            cols = 2 * xh + ((y + c) & 1)  # [L, L/2]
+            half = np.take_along_axis(s, np.broadcast_to(cols, (3, L, L // 2)), 2)
+            full = np.repeat(half, 2, axis=-1)  # the twin's expansion
+            colour = (np.add.outer(np.arange(L), np.arange(L)) % 2) == c
+            merged |= full & colour[None]
+            assert np.array_equal(full[:, colour], s[:, colour])
+        assert np.array_equal(merged, s)
 
     def test_compact_neighbor_sums_match_full_field(self):
-        # The Pallas kernel computes neighbor sums on compacted (L, L/2)
-        # color planes via rolls of the other plane + a row-parity select.
-        # Verify that formula against brute-force full-field neighbor sums.
+        # The kernel reads a site's four neighbours at (y +- 1, x) and
+        # (y, x +- 1) of the full field, all of the other colour; with
+        # x = 2 * xh + ((y + c) & 1) that matches the full-field rolls.
         L = 8
         rng = np.random.default_rng(7)
-        sf = rng.integers(0, 2, (L, L)).astype(np.float32) * 2 - 1
-
-        def split(f):
-            e = np.empty((L, L // 2), f.dtype)
-            o = np.empty((L, L // 2), f.dtype)
-            for y in range(L):
-                for k in range(L // 2):
-                    e[y, k] = f[y, 2 * k + (y & 1)]
-                    o[y, k] = f[y, 2 * k + 1 - (y & 1)]
-            return e, o
-
-        full_nsum = (
+        sf = rng.integers(0, 2, (L, L))
+        full_up = (
             np.roll(sf, 1, 0) + np.roll(sf, -1, 0)
             + np.roll(sf, 1, 1) + np.roll(sf, -1, 1)
         )
-        want_e, want_o = split(full_nsum)
-        e, o = split(sf)
-        row_even = (np.arange(L) % 2 == 0)[:, None]
-        nsum_e = (
-            np.roll(o, 1, 0) + np.roll(o, -1, 0) + o
-            + np.where(row_even, np.roll(o, 1, 1), np.roll(o, -1, 1))
-        )
-        nsum_o = (
-            np.roll(e, 1, 0) + np.roll(e, -1, 0) + e
-            + np.where(row_even, np.roll(e, -1, 1), np.roll(e, 1, 1))
-        )
-        assert np.array_equal(nsum_e, want_e)
-        assert np.array_equal(nsum_o, want_o)
+        for c in range(2):
+            for y in range(L):
+                for xh in range(L // 2):
+                    x = 2 * xh + ((y + c) & 1)
+                    assert (x + y) % 2 == c
+                    nb = [sf[(y - 1) % L, x], sf[(y + 1) % L, x],
+                          sf[y, (x - 1) % L], sf[y, (x + 1) % L]]
+                    assert sum(nb) == full_up[y, x]
+                    assert all(((y + dy) + (x + dx)) % 2 != c
+                               for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)))
 
 
 class TestEdgeFlips:

@@ -1,6 +1,6 @@
 """Partition oracle for the segment-contracted cluster labeling.
 
-The TPU-native cluster construction (``sse/cluster.py``) must produce the
+The batched cluster construction (``sse/cluster.py``) must produce the
 same partition of op sides as the reference's BFS cluster expansion
 (``src/sse/qmc_traits/cluster.rs:193-271``): sides of one op connect unless
 the op is a cluster edge (constant single-var op,  ``cluster.rs:276-286``),
@@ -120,57 +120,6 @@ def test_labels_large_m_compact_branch():
                 assert bwd.setdefault(got_l, ref_l) == ref_l, f"r={r} p={p}"
 
 
-def test_mm_root_stats_matches_scatter():
-    """The MXU one-hot root reductions (``_mm_root_stats``) must match the
-    per-lane label-space scatters they replace: the frozen any-reduction
-    exactly, the log-ratio segment sum to hi/lo bf16-split accuracy
-    (~2^-16 relative per term)."""
-    rng = np.random.default_rng(0)
-    M, R, SL = 257, 5, 37
-    logr = jnp.asarray(
-        rng.normal(size=(M, R)).astype(np.float32)
-        * rng.choice([0.0, 1.0, 70.0], size=(M, R)).astype(np.float32)
-    )
-    frozen = jnp.asarray(rng.random((M, R)) < 0.1)
-    idx = jnp.asarray(rng.integers(0, SL, size=(M, R)).astype(np.int32))
-
-    acc_logr, acc_frozen = _cluster._mm_root_stats(logr, frozen, idx, SL)
-
-    rows = np.broadcast_to(np.arange(R)[None, :], (M, R))
-    ref_logr = np.zeros((SL, R), np.float32)
-    np.add.at(ref_logr, (np.asarray(idx), rows), np.asarray(logr))
-    ref_frozen = np.zeros((SL, R), bool)
-    np.maximum.at(ref_frozen, (np.asarray(idx), rows), np.asarray(frozen))
-
-    assert np.array_equal(np.asarray(acc_frozen), ref_frozen)
-    scale = np.maximum(np.abs(ref_logr), 1.0)
-    assert np.allclose(np.asarray(acc_logr), ref_logr, atol=0), "nan/inf"
-    assert np.max(np.abs(np.asarray(acc_logr) - ref_logr) / scale) < 1e-4
-
-
-def test_cluster_update_mm_stats_chain(monkeypatch):
-    """Forcing the MXU root-stats path through a real ``cluster_update``
-    must keep the worldline oracle green (the path changes acceptance
-    rounding only, a different but valid chain)."""
-    monkeypatch.setattr(_cluster, "_FORCE_MM_STATS", True)
-    edges = lattice.frustrated_square(3, 3)
-    g = QmcIsingGraph(
-        edges, transverse=1.0, longitudinal=0.4, replicas=4, seed=11
-    )
-    g.sse, _, _, _ = multi_sweep(g.sse, jnp.float32(1.5), g.model, 8)
-    g._maybe_grow()
-    ops, state = g.sse.ops, g.sse.state
-    import jax
-
-    new_ops, new_state = _cluster.cluster_update(
-        ops, state, jax.random.key(3), g.model
-    )
-    from isingmontecarlo_tpu.sse.opstring import verify
-
-    ok = verify(new_ops, new_state, g.model)
-    assert bool(jnp.all(ok))
-
-
 def test_head_f_has_op_matches_leg_scatter():
     """The sweep driver derives the free-spin occupation map from the
     segment graph (``head_f < K*M``); it must equal the per-leg scatter that
@@ -218,95 +167,3 @@ def test_wrap_einsum_matches_scatter_fallback(monkeypatch):
         a = np.asarray(getattr(sg_einsum, name))
         b = np.asarray(getattr(sg_scatter, name))
         assert np.array_equal(a, b), name
-
-
-def test_cluster_update_take_kernel_bit_identical(monkeypatch):
-    """Forcing the Pallas gather kernel (interpret mode on CPU) through
-    ``cluster_labels`` and a full ``cluster_update`` must be bit-identical
-    to the default gather path — the kernel is an exact gather, not an
-    alternate chain."""
-    import jax
-
-    edges = lattice.frustrated_square(3, 3)
-    g = QmcIsingGraph(
-        edges, transverse=1.0, longitudinal=0.3, replicas=4, seed=21
-    )
-    g.sse, _, _, _ = multi_sweep(g.sse, jnp.float32(1.2), g.model, 8)
-    g._maybe_grow()
-    ops, state = g.sse.ops, g.sse.state
-
-    monkeypatch.setattr(_cluster, "_FORCE_TAKE_KERNEL", False)
-    lab_ref = _cluster.cluster_labels(ops, g.model)
-    ops_ref, st_ref = _cluster.cluster_update(
-        ops, state, jax.random.key(5), g.model
-    )
-
-    monkeypatch.setattr(_cluster, "_FORCE_TAKE_KERNEL", True)
-    lab_k = _cluster.cluster_labels(ops, g.model)
-    # cluster_update is module-jitted: clear its cache so the hook is read
-    # again at trace time (otherwise this would compare the ref path to its
-    # own cached executable).
-    _cluster.cluster_update.clear_cache()
-    ops_k, st_k = _cluster.cluster_update(
-        ops, state, jax.random.key(5), g.model
-    )
-
-    assert np.array_equal(np.asarray(lab_ref), np.asarray(lab_k))
-    assert np.array_equal(np.asarray(ops_ref.bond), np.asarray(ops_k.bond))
-    assert np.array_equal(np.asarray(ops_ref.inputs), np.asarray(ops_k.inputs))
-    assert np.array_equal(
-        np.asarray(ops_ref.outputs), np.asarray(ops_k.outputs)
-    )
-    assert np.array_equal(np.asarray(st_ref), np.asarray(st_k))
-
-
-def test_scatter_min_rows_matches_native_scatter():
-    """The double-sort hook write (``_scatter_min_rows``) must be exactly
-    ``P.at[tgt, cols].min(val)`` — including repeated targets per lane and
-    rows no edge targets (identity rows keep them)."""
-    rng = np.random.default_rng(11)
-    S, E, R = 61, 143, 7
-    P = jnp.asarray(rng.integers(0, S, size=(S, R)), jnp.int32)
-    tgt = jnp.asarray(rng.integers(0, S, size=(E, R)), jnp.int32)
-    val = jnp.asarray(rng.integers(0, S, size=(E, R)), jnp.int32)
-    cols = jnp.broadcast_to(jnp.arange(R, dtype=jnp.int32)[None, :], (E, R))
-    want = P.at[tgt, cols].min(val)
-    got = _cluster._scatter_min_rows(P, tgt, val)
-    assert np.array_equal(np.asarray(want), np.asarray(got))
-
-
-def test_labels_sort_scatter_bit_identical(monkeypatch):
-    """Forcing the sort-based hook write must leave the label fixpoint (and
-    the whole cluster update chain) bit-identical to the native scatter: the
-    per-round parent tables are equal, so every RNG draw downstream sees the
-    same inputs."""
-    import jax
-
-    edges = lattice.frustrated_square(4, 3)
-    g = QmcIsingGraph(
-        edges, transverse=1.1, longitudinal=0.2, replicas=4, seed=23
-    )
-    g.sse, _, _, _ = multi_sweep(g.sse, jnp.float32(1.0), g.model, 8)
-    g._maybe_grow()
-    ops, state = g.sse.ops, g.sse.state
-
-    monkeypatch.setattr(_cluster, "_FORCE_SORT_SCATTER", False)
-    lab_ref = _cluster.cluster_labels(ops, g.model)
-    _cluster.cluster_update.clear_cache()
-    ops_ref, st_ref = _cluster.cluster_update(
-        ops, state, jax.random.key(9), g.model
-    )
-
-    monkeypatch.setattr(_cluster, "_FORCE_SORT_SCATTER", True)
-    lab_s = _cluster.cluster_labels(ops, g.model)
-    _cluster.cluster_update.clear_cache()
-    ops_s, st_s = _cluster.cluster_update(
-        ops, state, jax.random.key(9), g.model
-    )
-
-    assert np.array_equal(np.asarray(lab_ref), np.asarray(lab_s))
-    assert np.array_equal(np.asarray(ops_ref.inputs), np.asarray(ops_s.inputs))
-    assert np.array_equal(
-        np.asarray(ops_ref.outputs), np.asarray(ops_s.outputs)
-    )
-    assert np.array_equal(np.asarray(st_ref), np.asarray(st_s))

@@ -58,83 +58,31 @@ def test_fast_path_matches_scan(L, G, h, beta, heatbath, scaled):
 
 
 @pytest.mark.parametrize(
-    "heatbath,window",
+    "Lx,Ly,heatbath",
     [
-        (False, 512),
-        (True, 512),
-        # window 2 forces compose overflow -> exercises the exact fallback
-        (False, 2),
+        (4, 8, False),  # N = 32: exactly one parity word
+        (5, 7, True),  # N = 35: a partial second word
+        (8, 8, False),  # N = 64: two full words
     ],
 )
-def test_speculative_carry_matches_scan(heatbath, window, monkeypatch):
-    """The block-speculative carry evaluation (used for large M) must be
-    bit-identical to the sequential carry scan, including when the candidate
-    window overflows and the fallback branch runs."""
-    edges = lattice.frustrated_square(4, 4)
-    g = QmcIsingGraph(edges, transverse=1.0, replicas=8, seed=9)
-    g.sse, _, _, _ = multi_sweep(g.sse, jnp.float32(1.2), g.model, 10)
+def test_packed_branch_matches_scan(Lx, Ly, heatbath):
+    """The precompute packs flip parities 32 variables to a word; at and
+    around word boundaries the fast path stays bit-identical to the
+    sequential scan."""
+    edges = lattice.frustrated_square(Lx, Ly)
+    g = QmcIsingGraph(edges, transverse=1.0, longitudinal=0.2, replicas=8,
+                      seed=3)
+    g.sse, _, _, _ = multi_sweep(g.sse, jnp.float32(1.0), g.model, 10)
     g._maybe_grow()
     ops, state, model = g.sse.ops, g.sse.state, g.model
     hbt = _diag.make_heatbath_tables(model) if heatbath else None
-    key = jax.random.key(7)
-    a = _diag._diagonal_update_fast(
-        ops, state, jnp.float32(1.2), key, model, hb=hbt, heatbath=heatbath
-    )
-    monkeypatch.setattr(_diag, "_SPEC_MIN_M", 1)
-    monkeypatch.setattr(_diag, "_SPEC_WINDOW", window)
-    monkeypatch.setattr(_diag, "_SPEC_BLOCK", 16)
-    _diag._diagonal_update_fast.clear_cache()
-    try:
-        b = _diag._diagonal_update_fast(
-            ops, state, jnp.float32(1.2), key, model,
-            hb=hbt, heatbath=heatbath,
-        )
-    finally:
-        _diag._diagonal_update_fast.clear_cache()
-    assert np.array_equal(np.asarray(a.bond), np.asarray(b.bond))
-    assert np.array_equal(np.asarray(a.inputs), np.asarray(b.inputs))
-    assert np.array_equal(np.asarray(a.outputs), np.asarray(b.outputs))
-
-
-@pytest.mark.parametrize(
-    "L,G,h,beta,heatbath,scaled",
-    [
-        (3, 1.0, 0.0, 1.0, False, False),
-        (3, 1.0, 0.3, 1.0, True, False),
-        (3, 1.0, 0.2, 1.0, True, True),
-    ],
-)
-def test_packed_branch_matches_scan(L, G, h, beta, heatbath, scaled):
-    """The bit-packed MXU precompute branch (TPU default, forced here via
-    the test hook) must also be bit-identical to the sequential scan."""
-    edges = lattice.frustrated_square(L, L)
-    g = QmcIsingGraph(edges, transverse=G, longitudinal=h, replicas=8, seed=3)
-    g.sse, _, _, _ = multi_sweep(g.sse, jnp.float32(beta), g.model, 10)
-    g._maybe_grow()
-    ops, state, model = g.sse.ops, g.sse.state, g.model
-    bs = (
-        jax.random.uniform(
-            jax.random.key(L), (8, model.nbonds), minval=0.5, maxval=1.5
-        )
-        if scaled
-        else None
-    )
-    hbt = _diag.make_heatbath_tables(model, bs) if heatbath else None
     key = jax.random.key(42)
     a = _diag._diagonal_update_scan(
-        ops, state, jnp.float32(beta), key, model,
-        hb=hbt, heatbath=heatbath, bond_scale=bs,
+        ops, state, jnp.float32(1.0), key, model, hb=hbt, heatbath=heatbath,
     )
-    _diag._FORCE_PACKED = True
-    _diag._diagonal_update_fast.clear_cache()
-    try:
-        b = _diag._diagonal_update_fast(
-            ops, state, jnp.float32(beta), key, model,
-            hb=hbt, heatbath=heatbath, bond_scale=bs,
-        )
-    finally:
-        _diag._FORCE_PACKED = None
-        _diag._diagonal_update_fast.clear_cache()
+    b = _diag._diagonal_update_fast(
+        ops, state, jnp.float32(1.0), key, model, hb=hbt, heatbath=heatbath,
+    )
     assert np.array_equal(np.asarray(a.bond), np.asarray(b.bond))
     assert np.array_equal(np.asarray(a.inputs), np.asarray(b.inputs))
     assert np.array_equal(np.asarray(a.outputs), np.asarray(b.outputs))
@@ -144,10 +92,11 @@ def test_packed_branch_matches_scan(L, G, h, beta, heatbath, scaled):
     "heatbath,replicas",
     [(False, 8), (True, 8), (False, 128)],
 )
-def test_carry_kernel_matches_scan(heatbath, replicas, monkeypatch):
-    """The Pallas carry-scan kernel (TPU default, interpreter mode here) must
-    be bit-identical to the sequential carry scan. replicas=128 exercises the
-    sublane x lane replica layout."""
+def test_carry_kernel_matches_scan(heatbath, replicas, fake_gpu):
+    """The carry kernel's wrapper — packing, dispatch and unpacking, with
+    the kernel replaced by its plain twin (the kernel itself is checked on
+    the card, tests/test_gpu_kernels.py) — is bit-identical to the
+    sequential carry scan."""
     edges = lattice.frustrated_square(4, 4)
     g = QmcIsingGraph(edges, transverse=1.0, replicas=replicas, seed=9)
     g.sse, _, _, _ = multi_sweep(g.sse, jnp.float32(1.2), g.model, 10)
@@ -155,26 +104,21 @@ def test_carry_kernel_matches_scan(heatbath, replicas, monkeypatch):
     ops, state, model = g.sse.ops, g.sse.state, g.model
     hbt = _diag.make_heatbath_tables(model) if heatbath else None
     key = jax.random.key(7)
-    a = _diag._diagonal_update_fast(
+    a = _diag._diagonal_update_scan(
         ops, state, jnp.float32(1.2), key, model, hb=hbt, heatbath=heatbath
     )
-    monkeypatch.setattr(_diag, "_FORCE_CARRY_KERNEL", True)
-    _diag._diagonal_update_fast.clear_cache()
-    try:
-        b = _diag._diagonal_update_fast(
-            ops, state, jnp.float32(1.2), key, model,
-            hb=hbt, heatbath=heatbath,
-        )
-    finally:
-        _diag._diagonal_update_fast.clear_cache()
+    b = _diag._diagonal_update_fast(
+        ops, state, jnp.float32(1.2), key, model, hb=hbt, heatbath=heatbath,
+    )
+    assert "carry" in fake_gpu
     assert np.array_equal(np.asarray(a.bond), np.asarray(b.bond))
     assert np.array_equal(np.asarray(a.inputs), np.asarray(b.inputs))
     assert np.array_equal(np.asarray(a.outputs), np.asarray(b.outputs))
 
 
-@pytest.mark.parametrize("packed,heatbath", [(False, False), (True, False),
-                                             (False, True)])
-def test_chunked_precompute_matches_unchunked(packed, heatbath, monkeypatch):
+@pytest.mark.parametrize("chunks,heatbath", [(7, False), (3, False),
+                                             (7, True)])
+def test_chunked_precompute_matches_unchunked(chunks, heatbath, monkeypatch):
     """Forcing a tiny element cap splits the parity precompute into many
     M-chunks threaded by the XOR carry; decisions must stay bit-identical
     to the sequential scan."""
@@ -189,11 +133,10 @@ def test_chunked_precompute_matches_unchunked(packed, heatbath, monkeypatch):
         ops, state, jnp.float32(1.2), key, model, hb=hbt, heatbath=heatbath
     )
     M = ops.bond.shape[0]
-    # cap forcing ~7 chunks
-    cap = (M // 7 + 1) * 8 * model.nvars
-    monkeypatch.setattr(_diag, "_FORCE_PACKED", packed)
-    monkeypatch.setattr(_diag, "_PAR_MAX_ELEMS", cap)
-    monkeypatch.setattr(_diag, "_PAR_MAX_ELEMS_PACKED", cap)
+    # cap forcing ``chunks`` M-chunks of [Mc, R=8, W] parity words
+    W = -(-model.nvars // 32)
+    cap = (M // chunks + 1) * 8 * W
+    monkeypatch.setattr(_diag, "_PAR_MAX_WORDS", cap)
     _diag._diagonal_update_fast.clear_cache()
     try:
         b = _diag._diagonal_update_fast(
@@ -207,56 +150,18 @@ def test_chunked_precompute_matches_unchunked(packed, heatbath, monkeypatch):
     assert np.array_equal(np.asarray(a.outputs), np.asarray(b.outputs))
 
 
-@pytest.mark.parametrize(
-    "heatbath,replicas,N_odd",
-    [(False, 8, False), (True, 8, False), (False, 8, True), (False, 128, False)],
-)
-def test_parity_kernel_matches_packed(heatbath, replicas, N_odd, monkeypatch):
-    """The Pallas flip-parity kernel (interpreter mode here) must make the
-    full diagonal update bit-identical to the default precompute path.
-    ``N_odd`` uses a lattice whose variable count is not a multiple of 16
-    (exercises the sentinel/padding word handling)."""
-    edges = (
-        lattice.frustrated_square(3, 3) if N_odd
-        else lattice.frustrated_square(4, 4)
-    )
-    g = QmcIsingGraph(edges, transverse=1.0, replicas=replicas, seed=31)
-    g.sse, _, _, _ = multi_sweep(g.sse, jnp.float32(1.1), g.model, 10)
-    g._maybe_grow()
-    ops, state, model = g.sse.ops, g.sse.state, g.model
-    hbt = _diag.make_heatbath_tables(model) if heatbath else None
-    key = jax.random.key(17)
-    a = _diag._diagonal_update_fast(
-        ops, state, jnp.float32(1.1), key, model, hb=hbt, heatbath=heatbath
-    )
-    monkeypatch.setattr(_diag, "_FORCE_PARITY_KERNEL", True)
-    _diag._diagonal_update_fast.clear_cache()
-    try:
-        b = _diag._diagonal_update_fast(
-            ops, state, jnp.float32(1.1), key, model,
-            hb=hbt, heatbath=heatbath,
-        )
-    finally:
-        _diag._diagonal_update_fast.clear_cache()
-    assert np.array_equal(np.asarray(a.bond), np.asarray(b.bond))
-    assert np.array_equal(np.asarray(a.inputs), np.asarray(b.inputs))
-    assert np.array_equal(np.asarray(a.outputs), np.asarray(b.outputs))
-
-
 def test_searchsorted_left_bit_equivalence():
-    """tables.searchsorted_left (the TPU two-level compare-count used by the
-    heat-bath proposal sampler) must be bit-identical to jnp.searchsorted
-    side='left' — duplicates, exact hits, out-of-range, and non-multiple-
-    of-chunk table lengths included."""
+    """tables.searchsorted_left (the heat-bath proposal sampler) is
+    ``jnp.searchsorted`` side='left' as int32, for one table and per replica
+    — duplicates, exact hits and out-of-range queries included."""
     from isingmontecarlo_tpu.sse import tables as _tables
 
     rng = np.random.default_rng(11)
-    for NB in (65, 128, 200, 1024, 2048, 2049):
+    for NB in (65, 200, 2049):
         raw = rng.gamma(1.0, 1.0, NB).astype(np.float32)
         raw[rng.uniform(size=NB) < 0.1] = 0.0  # duplicates in the cumsum
         base = raw.cumsum()
         tbl = jnp.asarray(base.astype(np.float32))
-        # Queries: uniform in range, exact table entries, below-min, above-max.
         q = np.concatenate([
             rng.uniform(0, float(base[-1]) * 1.05, (37, 8)).astype(np.float32),
             base[rng.integers(0, NB, (5, 8))].astype(np.float32),
@@ -264,32 +169,24 @@ def test_searchsorted_left_bit_equivalence():
             np.full((1, 8), float(base[-1]) * 2, np.float32),
         ])
         qj = jnp.asarray(q)
-        want = np.asarray(jnp.searchsorted(tbl, qj)).astype(np.int64)
-        got = np.asarray(_tables.searchsorted_left(tbl, qj, on_tpu=True))
-        assert np.array_equal(got, want), NB
-        # Per-replica [R, NB] form: each replica searched against its own
-        # table (here shifted copies) and q's matching column.
+        want = np.searchsorted(base.astype(np.float32), q, side="left")
+        got = np.asarray(_tables.searchsorted_left(tbl, qj))
+        assert got.dtype == np.int32 and np.array_equal(got, want), NB
         R = qj.shape[1]
         shift = rng.uniform(0, 1, (R, 1)).astype(np.float32)
-        tblR = jnp.asarray(base[None, :] + shift)
+        tblR = base[None, :].astype(np.float32) + shift
         wantR = np.stack(
-            [
-                np.asarray(jnp.searchsorted(tblR[r], qj[:, r]))
-                for r in range(R)
-            ],
+            [np.searchsorted(tblR[r], q[:, r], side="left") for r in range(R)],
             axis=1,
         )
-        gotR = np.asarray(_tables.searchsorted_left(tblR, qj, on_tpu=True))
+        gotR = np.asarray(_tables.searchsorted_left(jnp.asarray(tblR), qj))
         assert np.array_equal(gotR, wantR), NB
 
 
-def test_heatbath_fast_path_unaffected_by_searchsorted_route(monkeypatch):
-    """The heat-bath fast path must produce the identical op string whether
-    the proposal bonds come from jnp.searchsorted (CPU route) or the
-    two-level compare-count (TPU route), at a table size that exercises the
-    two-level branch."""
-    from isingmontecarlo_tpu.sse import tables as _tables
-
+def test_heatbath_fast_path_unaffected_by_searchsorted_route():
+    """At a bond table larger than any select chain (6x6: NB = 108) the
+    heat-bath fast path, whose proposals come from searchsorted_left, is
+    bit-identical to the sequential scan's per-slot searchsorted."""
     g = QmcIsingGraph(
         lattice.bench_two_d_periodic(6), transverse=0.8, replicas=4, seed=3
     )
@@ -302,22 +199,9 @@ def test_heatbath_fast_path_unaffected_by_searchsorted_route(monkeypatch):
     a = _diag._diagonal_update_fast(
         ops, state, jnp.float32(1.2), key, model, **kw
     )
-    real = _tables.searchsorted_left
-    monkeypatch.setattr(
-        _tables, "searchsorted_left",
-        lambda t, q, on_tpu=None: real(t, q, on_tpu=True),
+    b = _diag._diagonal_update_scan(
+        ops, state, jnp.float32(1.2), key, model, **kw
     )
-    monkeypatch.setattr(
-        _diag, "_searchsorted_left",
-        lambda t, q, on_tpu=None: real(t, q, on_tpu=True),
-    )
-    _diag._diagonal_update_fast.clear_cache()
-    try:
-        b = _diag._diagonal_update_fast(
-            ops, state, jnp.float32(1.2), key, model, **kw
-        )
-    finally:
-        _diag._diagonal_update_fast.clear_cache()
     assert np.array_equal(np.asarray(a.bond), np.asarray(b.bond))
     assert np.array_equal(np.asarray(a.inputs), np.asarray(b.inputs))
     assert np.array_equal(np.asarray(a.outputs), np.asarray(b.outputs))

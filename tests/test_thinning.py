@@ -32,8 +32,8 @@ def _equilibrated(replicas=4, seed=3, nsweeps=6):
 @pytest.mark.parametrize("k,ns", [(3, 6), (3, 7), (4, 3)])
 def test_nested_thinning_bit_identical_to_sweep_composition(k, ns):
     # ns % k != 0 exercises the cluster-less tail scan (the per-sweep cond
-    # fallback it replaced compiled a double-size program that hung the
-    # remote compile helper); ns < k exercises the zero-block case.
+    # fallback it replaced compiled a double-size program); ns < k exercises
+    # the zero-block case.
     g, beta = _equilibrated()
     sse_a, ns_a, _, succ_a = multi_sweep(
         g.sse, beta, g.model, ns, cluster_every=k
